@@ -1,0 +1,492 @@
+#!/usr/bin/env python3
+"""Smoke run of the ntcard_tpu_torch port on one CUDA card.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases (each one raises on a failure; the script then exits nonzero and
+prints no result):
+
+1. build every hand kernel from ntcard_tpu_torch/csrc with nvcc;
+2. hold each kernel against its plain PyTorch version on the card at the
+   main path's shapes, bit for bit (integer outputs, tolerance 0), and time
+   both with CUDA events;
+3. run the port CLI on the card over the reference goldens in tests/golden;
+4. the main path at full width: a seeded 1,000,000-read FASTQ (150 Mbp,
+   30x of a 5 Mbp genome) through the port CLI at -k64,96,128 and the
+   default r = 27 (three 1.07 GB tables on the card), then at -k64 -r16;
+   each .hist must equal the native host engine's on the same file, and
+   every kernel must have been launched in these runs;
+5. where the time of those runs goes: decode + pack alone against the
+   end-to-end wall, device busy time and idle share (torch.profiler), and
+   the device step, wire decode and finalize (CUDA events).
+
+The last two lines are a {"kernels": [...]} record and the result line
+{"ok": true, "device": {...}}. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent
+DATA = REPO / "tests" / "data"
+GOLD = REPO / "tests" / "golden"
+
+# main-path shapes: default geometry at kmax = 128 (pipeline.default_geometry)
+B, L, KS, S_BITS = 8192, 1024, (64, 96, 128), 7
+
+
+def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of fn() in ms, by CUDA events around ``iters`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_abs_err(a, b) -> int:
+    import torch
+
+    if a.shape != b.shape:
+        raise AssertionError(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
+
+
+def expect_equal(name: str, a, b) -> int:
+    err = max_abs_err(a, b)
+    if err != 0:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version (max abs err {err})")
+    return err
+
+
+def random_codes(rng, rows: int, cols: int) -> np.ndarray:
+    """[rows, cols] codes: random ACGT, scattered Ns, and record separators
+    (an N every 151 bases at a per-row offset), as the packer makes them."""
+    codes = rng.integers(0, 4, (rows, cols), dtype=np.uint8)
+    codes[rng.random((rows, cols)) < 0.003] = 4
+    off = rng.integers(0, 151, rows)
+    codes[(np.arange(cols)[None, :] + off[:, None]) % 151 == 0] = 4
+    return codes
+
+
+def sampled_repeat_batch(k: int, stride: int, period: int = 8):
+    """One [B, L] batch of a record with a short period whose k-mer passes
+    the sample test, so one in ``period`` windows is sampled and the count
+    exceeds the compaction cap (the telomeric-repeat shape of
+    __graft_entry__._dryrun_production_paths)."""
+    from ntcard_tpu.io.packing import pack_records
+    from ntcard_tpu.ops import nthash_ref as R
+
+    rng = np.random.default_rng(99)
+    smask = (1 << (S_BITS - 1)) - 1
+    alphabet = np.frombuffer(b"ACGT", np.uint8)
+    while True:
+        unit = bytes(rng.choice(alphabet, size=period))
+        hi = R.ntc64(R.seq_to_codes(unit * (k // period)), k) >> 32
+        if (hi >> (31 - S_BITS)) == 1 or (hi >> (32 - S_BITS)) == smask:
+            break
+    record = unit * ((B * stride + 2 * L) // period)
+    return next(iter(pack_records([record], L, B, max(KS))))
+
+
+def phase_kernels(dev, seed: int) -> list:
+    import torch
+
+    from ntcard_tpu.io.packing import aligned_stride
+    from ntcard_tpu_torch.models.sketch import CountTableSketch, emit_cap
+    from ntcard_tpu_torch.ops import scatter as S
+    from ntcard_tpu_torch.ops.sketch_idx import sketch_idx, sketch_idx_plain
+
+    rng = np.random.default_rng(seed)
+    stride = aligned_stride(L, max(KS))
+    # the main path hands K1 the position-major [L, B] stream as a [B, L] view
+    cT = torch.from_numpy(np.ascontiguousarray(random_codes(rng, B, L).T)).to(dev)
+    codes = cT.T
+    recs = []
+
+    def rec(name, source, replaces, err, ms, plain_ms):
+        recs.append(
+            {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": 0, "max_abs_err": err, "ms": round(ms, 4), "plain_ms": round(plain_ms, 4)}
+        )
+        print(f"  {name}: max_abs_err {err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+
+    # K1 at r = 27 and r = 16
+    idx = {}
+    for r in (27, 16):
+        got = sketch_idx(codes, KS, stride, S_BITS, r)
+        want = sketch_idx_plain(codes, KS, stride, S_BITS, r)
+        err = expect_equal(f"sketch_idx r{r}", got, want)
+        idx[r] = got
+        print(f"  sketch_idx r{r}: bit-exact over {got.numel()} emit indices")
+    ms = cuda_ms(lambda: sketch_idx(codes, KS, stride, S_BITS, 27))
+    plain_ms = cuda_ms(lambda: sketch_idx_plain(codes, KS, stride, S_BITS, 27), iters=3, warmup=1)
+    rec("sketch_idx", "ntcard_tpu_torch/csrc/sketch_idx.cu",
+        "ntcard_tpu/ops/nthash_pallas.py:215", err, ms, plain_ms)
+
+    # K2 at r = 16 on K1's k=64 emit stream
+    flat16 = idx[16][0].reshape(-1)
+    zeros16 = torch.zeros((2 << 16) + 1, dtype=torch.int32, device=dev)
+    err = expect_equal("table_add r16", S.hist_add(flat16, 16),
+                       S.table_add_plain(zeros16.clone(), flat16, 2 << 16))
+    rec("table_add", "ntcard_tpu_torch/csrc/hist_add.cu",
+        "ntcard_tpu/ops/scatter_pallas.py:125", err,
+        cuda_ms(lambda: S.table_add_(zeros16, flat16, 2 << 16)),
+        cuda_ms(lambda: S.table_add_plain(zeros16, flat16, 2 << 16)))
+
+    # K3 at r = 27 on K1's k=64 emit stream, at the JAX cap
+    sent = 2 << 27
+    flat27 = idx[27][0].reshape(-1)
+    cap = emit_cap(flat27.numel())
+    (v, c), (pv, pc) = S.compact(flat27, sent, cap), S.compact_plain(flat27, sent, cap)
+    if int(c) != int(pc) or int(c) > cap:
+        raise AssertionError(f"compact: count {int(c)} vs plain {int(pc)} (cap {cap})")
+    err = expect_equal("compact", torch.sort(v).values, torch.sort(pv).values)
+    print(f"  compact: {int(c)} survivors of {flat27.numel()} at cap {cap}")
+    # forced overflow: counts agree past the cap, and the sketch's gated
+    # full-stream add makes the table exact
+    over_codes = torch.from_numpy(sampled_repeat_batch(64, stride)).to(dev)
+    oidx = sketch_idx(over_codes, (64,), stride, S_BITS, 27)[0].reshape(-1)
+    (_, oc), (_, opc) = S.compact(oidx, sent, cap), S.compact_plain(oidx, sent, cap)
+    if int(oc) != int(opc) or int(oc) <= cap:
+        raise AssertionError(f"forced overflow: count {int(oc)} vs plain {int(opc)} (cap {cap})")
+    sk = CountTableSketch((64,), S_BITS, 27, stride, device=dev)
+    sk.update(over_codes)
+    ref = torch.bincount(oidx[(oidx >= 0) & (oidx < sent)], minlength=sent)[:sent]
+    expect_equal("overflow update", sk.tables[0][:sent], ref)
+    if sk.replays != 1:
+        raise AssertionError(f"forced overflow: {sk.replays} overflowed updates, expected 1")
+    print(f"  forced overflow: count {int(oc)} > cap {cap}, table exact after the gated add")
+    rec("compact", "ntcard_tpu_torch/csrc/compact.cu",
+        "ntcard_tpu/ops/scatter_pallas.py:306", err,
+        cuda_ms(lambda: S.compact(flat27, sent, cap)),
+        cuda_ms(lambda: S.compact_plain(flat27, sent, cap)))
+    # K2 gated by a set overflow flag, on the forced-overflow stream
+    flag = torch.ones(1, dtype=torch.int32, device=dev)
+    table = torch.zeros(sent + 1, dtype=torch.int32, device=dev)
+    err = expect_equal(
+        "table_add gated",
+        S.table_add_(table.clone(), oidx, sent, gate=flag),
+        S.table_add_plain(table.clone(), oidx, sent, gate=flag),
+    )
+    ms = cuda_ms(lambda: S.table_add_(table, oidx, sent, gate=flag))
+    plain_ms = cuda_ms(lambda: S.table_add_plain(table, oidx, sent, gate=flag))
+    print(f"  table_add gated (flag set, {oidx.numel()} windows): max_abs_err {err}, "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+
+    # K4 on an r = 27 table: mostly zero counters, some past the uint16 wrap
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.zeros((2, 1 << 27), dtype=torch.int32, device=dev)
+    hit = torch.rand(rows.shape, generator=gen, device=dev) < 0.02
+    vals = torch.randint(1, 1 << 18, rows.shape, generator=gen, device=dev, dtype=torch.int32)
+    small = torch.randint(1, 64, rows.shape, generator=gen, device=dev, dtype=torch.int32)
+    rows = torch.where(hit, torch.where(vals < (1 << 17), small, vals), rows)
+    for nbins in (65, 1001, 65536):
+        err = expect_equal(
+            f"counter_hist nbins={nbins}",
+            S.counter_hist(rows, nbins),
+            S.counter_hist_plain(rows, nbins),
+        )
+        ms = cuda_ms(lambda: S.counter_hist(rows, nbins))
+        plain_ms = cuda_ms(lambda: S.counter_hist_plain(rows, nbins), iters=3, warmup=1)
+        print(f"  counter_hist nbins={nbins}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if nbins == 1001:  # -c1000, the default
+            rec("counter_hist", "ntcard_tpu_torch/csrc/counter_hist.cu",
+                "ntcard_tpu/ops/scatter_pallas.py:306", err, ms, plain_ms)
+    return recs
+
+
+def run_cli(argv, device, capture_stderr=False):
+    from ntcard_tpu_torch.cli import main
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err) if capture_stderr else contextlib.nullcontext():
+        rc = main([str(a) for a in argv], device=device)
+    if rc != 0:
+        raise AssertionError(f"port CLI {argv} returned {rc}")
+    return err.getvalue()
+
+
+def cli_metrics(stderr: str) -> dict:
+    """The JSON object that a --metrics run writes to stderr."""
+    for line in stderr.splitlines():
+        if line.startswith("{") and '"phases_sec"' in line:
+            return json.loads(line)
+    raise AssertionError("no --metrics record on the CLI's stderr")
+
+
+def phase_goldens(tmp: Path) -> None:
+    def same(out, good):
+        if (tmp / out).read_bytes() != (GOLD / good).read_bytes():
+            raise AssertionError(f"{out} differs from tests/golden/{good}")
+
+    run_cli(["-k12", "-c1000", "-r16", "-p", tmp / "a", DATA / "reads.fq"], "cuda")
+    same("a_k12.hist", "reads_k12.hist.good")
+    run_cli(["-k12", "-c1000", "-p", tmp / "d", DATA / "reads.fq"], "cuda")
+    same("d_k12.hist", "reads_r27_k12.hist.good")
+    run_cli(["-k32,64,96", "-c64", "-r16", "-p", tmp / "m", DATA / "reads.fq"], "cuda")
+    for k in (32, 64, 96):
+        same(f"m_k{k}.hist", f"reads_k{k}.hist.good")
+    run_cli(["-k25,96", "-c64", "-r16", "-p", tmp / "c", DATA / "contig.fa"], "cuda")
+    same("c_k25.hist", "contig_k25.hist.good")
+    same("c_k96.hist", "contig_k96.hist.good")
+    run_cli(["-k12", "-c1000", "-r16", "-p", tmp / "b", DATA / "reads.fq", DATA / "contig.fa"],
+            "cuda")
+    same("b_k12.hist", "both_k12.hist.good")
+    err = run_cli(["-k12,32", "-c64", "-r16", "-o", tmp / "o.tsv", DATA / "reads.fq"], "cuda",
+                  capture_stderr=True)
+    same("o.tsv", "reads_compact.tsv.good")
+    klines = "".join(line + "\n" for line in err.splitlines() if line.startswith("k="))
+    if klines != (GOLD / "reads_compact.stderr.good").read_text():
+        raise AssertionError("compact stderr differs from tests/golden/reads_compact.stderr.good")
+    print("  10 golden files byte-equal (reads k12 r16 and r27, k32/64/96, contig k25/k96, "
+          "both k12, compact TSV + stderr)")
+
+
+def write_fastq(path: Path, seed: int, genome_len=5_000_000, n_reads=1_000_000,
+                read_len=150, sub_rate=0.005, n_read_frac=0.01) -> None:
+    """Seeded reads of a random genome: both strands, substitutions at
+    ``sub_rate``, and a run of 1-10 Ns in ``n_read_frac`` of the reads."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, genome_len, dtype=np.uint8)
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    cols = np.arange(read_len)
+    with open(path, "wb") as f:
+        for lo in range(0, n_reads, 100_000):
+            n = min(100_000, n_reads - lo)
+            starts = rng.integers(0, genome_len - read_len + 1, n)
+            reads = genome[starts[:, None] + cols]
+            rc = rng.random(n) < 0.5
+            reads[rc] = 3 - reads[rc, ::-1]
+            sub = rng.random((n, read_len)) < sub_rate
+            reads[sub] = (reads[sub] + rng.integers(1, 4, int(sub.sum()), dtype=np.uint8)) % 4
+            seq = letters[reads]
+            nrun = rng.random(n) < n_read_frac
+            s0 = rng.integers(0, read_len, n)[:, None]
+            ln = rng.integers(1, 11, n)[:, None]
+            seq[nrun[:, None] & (cols >= s0) & (cols < s0 + ln)] = ord("N")
+            ids = lo + np.arange(n)
+            digits = (ids[:, None] // 10 ** np.arange(6, -1, -1)) % 10 + ord("0")
+            rec = np.concatenate(
+                [
+                    np.broadcast_to(np.frombuffer(b"@r", np.uint8), (n, 2)),
+                    digits.astype(np.uint8),
+                    np.full((n, 1), ord("\n"), np.uint8),
+                    seq,
+                    np.broadcast_to(np.frombuffer(b"\n+\n", np.uint8), (n, 3)),
+                    np.full((n, read_len), ord("I"), np.uint8),
+                    np.full((n, 1), ord("\n"), np.uint8),
+                ],
+                axis=1,
+            )
+            f.write(rec.tobytes())
+
+
+# the full-size runs: (tag, CLI flags, ks)
+RUNS = [("r27", ["-k64,96,128", "-c1000"], (64, 96, 128)), ("r16", ["-k64", "-r16"], (64,))]
+BREAKDOWN_REPS = 3  # decode-alone / wall pairs per run; the median is read
+
+
+def phase_full(fq: Path, tmp: Path, dev) -> dict:
+    import torch
+
+    from ntcard_tpu.cli import _main_host, parse_args
+    from ntcard_tpu.models.host_engine import host_engine_available
+    from ntcard_tpu_torch.ops import scatter as S
+    from ntcard_tpu_torch.ops.sketch_idx import sketch_idx
+
+    if not host_engine_available():
+        raise AssertionError("the native host engine (the full-size reference) is unavailable")
+    wrappers = {
+        "sketch_idx": sketch_idx, "table_add": S.table_add_, "compact": S.compact,
+        "counter_hist": S.counter_hist,
+    }
+    for w in wrappers.values():
+        w.launches = 0
+    walls, after, metrics = {}, {}, {}
+    for tag, flags, _ in RUNS:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        err = run_cli([*flags, "--metrics", "-p", tmp / f"gpu_{tag}", fq], dev.type,
+                      capture_stderr=True)
+        walls[tag] = time.monotonic() - t0
+        after[tag] = {name: w.launches for name, w in wrappers.items()}
+        metrics[tag] = cli_metrics(err)
+    counts = after[RUNS[-1][0]]
+    for tag, flags, ks in RUNS:
+        m = metrics[tag]
+        print(f"  {tag} {' '.join(flags)}: wall {walls[tag]:.3f} s, "
+              f"{1_000_000 / walls[tag]:.0f} reads/s; CLI phases (s) {m['phases_sec']}")
+    print(f"  launches in the main-path runs: {counts}")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the main path")
+    # table_add runs gated by the overflow flag in the r > 16 run, where a
+    # launch adds the stream only for a batch that overflowed, and ungated
+    # in the r16 run
+    big = RUNS[0][0]
+    gated = after[big]["table_add"]
+    print(f"  table_add: {gated} gated launches ({big}), of which "
+          f"{int(metrics[big]['counters']['overflow_replays'])} found the flag set and added "
+          f"the full stream; {counts['table_add'] - gated} ungated adds ({RUNS[1][0]})")
+    for tag, flags, ks in RUNS:
+        opt, files = parse_args([*flags, "-t", str(os.cpu_count() or 1), "-p",
+                                 str(tmp / f"host_{tag}"), str(fq)])
+        opt.s_bits = 7  # the <50 GB rule the port CLI applied
+        with contextlib.redirect_stderr(io.StringIO()):
+            if _main_host(opt, files, time.monotonic()) != 0:
+                raise AssertionError(f"host engine run {tag} failed")
+        for k in ks:
+            gpu = (tmp / f"gpu_{tag}_k{k}.hist").read_bytes()
+            if gpu != (tmp / f"host_{tag}_k{k}.hist").read_bytes():
+                raise AssertionError(f"{tag} k{k}: port .hist differs from the host engine's")
+    print("  every .hist byte-equal to the native host engine's")
+    return counts
+
+
+def device_busy_s(prof) -> float:
+    """Device time in a torch.profiler trace: the sum of every device-side
+    event (kernels and copies run one at a time on the one stream)."""
+    import torch
+
+    total_us = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            total_us += e.self_cuda_time_total if t is None else t
+    return total_us / 1e6
+
+
+def phase_breakdown(fq: Path, tmp: Path, dev) -> None:
+    """Where the full-size runs' time goes. Per run: decode + pack alone (the
+    CLI's own batch stream with no device), interleaved with end-to-end
+    walls; device busy time in one profiled run and the idle share against
+    the median wall; the device step of one batch, its wire decode, and
+    finalize, by CUDA events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ntcard_tpu.cli import parse_args
+    from ntcard_tpu.io.packing import wire_mode_of
+    from ntcard_tpu.io.readers import expand_file_args
+    from ntcard_tpu_torch.cli import wire_batches
+    from ntcard_tpu_torch.models.sketch import CountTableSketch
+    from ntcard_tpu_torch.ops.nthash import codes_T
+
+    for tag, flags, _ in RUNS:
+        opt, args = parse_args([*flags, "-p", str(tmp / f"b_{tag}"), str(fq)])
+        opt.s_bits = 7  # the <50 GB rule the port CLI applies
+        files = expand_file_args(args)
+        decode, walls = [], []
+        for _ in range(BREAKDOWN_REPS):
+            t0 = time.monotonic()
+            n_batches = sum(1 for _ in wire_batches(opt, files, {})[0])
+            decode.append(time.monotonic() - t0)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            run_cli([*flags, "-p", tmp / f"b_{tag}", fq], dev.type)
+            walls.append(time.monotonic() - t0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            run_cli([*flags, "-p", tmp / f"b_{tag}", fq], dev.type)
+            torch.cuda.synchronize()
+            prof_wall = time.monotonic() - t0
+        busy = device_busy_s(prof)
+
+        batches, stride, use_quad, halo = wire_batches(opt, files, {})
+        wire = torch.from_numpy(next(iter(batches))).to(dev)
+        packed = wire_mode_of(wire, opt.batch_rows, halo) if use_quad else True
+        sk = CountTableSketch(opt.k_list, opt.s_bits, opt.r_bits, stride, device=dev)
+        step_ms = cuda_ms(lambda: sk.update(wire, packed=packed))
+        unpack_ms = cuda_ms(lambda: codes_T(wire, packed))
+        fin_ms = cuda_ms(lambda: sk.finalize(cov_max=opt.cov_max), iters=3, warmup=1)
+        del sk
+        wall_med = sorted(walls)[BREAKDOWN_REPS // 2]
+        rec = {
+            "batches": n_batches,
+            "decode_only_s": decode, "wall_s": walls, "profiled_wall_s": prof_wall,
+            "device_busy_s": busy, "idle_share_of_median_wall": 1 - busy / wall_med,
+            "decode_share_of_median_wall": sorted(decode)[BREAKDOWN_REPS // 2] / wall_med,
+            "step_ms": step_ms, "unpack_ms": unpack_ms, "finalize_ms": fin_ms,
+        }
+        print(f"  {tag} breakdown: {json.dumps(rec)}")
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0, help="seed of every generated input")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from ntcard_tpu import native
+    from ntcard_tpu_torch import _build
+
+    dev = torch.device("cuda")
+    print("phase 1: build")
+    t0 = time.monotonic()
+    _build.build_all()
+    print(f"  kernels built in {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    if native.get_lib() is None:
+        raise AssertionError("the native decode + pack library did not build")
+    print(f"  native decode + pack library ready in {time.monotonic() - t0:.1f} s "
+          "(g++ builds it once per cache directory)")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+
+    print("phase 2: kernels vs plain versions at the main path's shapes")
+    kernels = phase_kernels(dev, args.seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        tmp = Path(td)
+        print("phase 3: goldens through the port CLI on the card")
+        phase_goldens(tmp)
+        print("phase 4: full-size main path")
+        fq = tmp / "reads.fq"
+        t0 = time.monotonic()
+        write_fastq(fq, args.seed)
+        print(f"  wrote {fq.stat().st_size} bytes of FASTQ in {time.monotonic() - t0:.1f} s")
+        counts = phase_full(fq, tmp, dev)
+        print("phase 5: where the time goes in the full-size runs")
+        phase_breakdown(fq, tmp, dev)
+    for k in kernels:
+        k["launches"] = counts[k["name"]]
+    if "jax" in sys.modules:
+        raise AssertionError("the port imported jax")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

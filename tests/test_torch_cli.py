@@ -1,0 +1,122 @@
+"""The port's CLI (ntcard_tpu_torch.cli) on the CPU: byte parity with the
+reference goldens, no jax import, the explicit device rule, and the refusal
+of what is not ported yet."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(2)  # tier-1 runs six xdist workers
+
+from ntcard_tpu_torch import cli  # noqa: E402
+
+REPO = Path(__file__).resolve().parent.parent
+DATA = Path(__file__).parent / "data"
+GOLD = Path(__file__).parent / "golden"
+
+# (flags, inputs, {output suffix: golden}) — the device path's goldens
+GOLDENS = {
+    "reads_k12_r16": (["-k12", "-c1000", "-r16"], ["reads.fq"], {"_k12.hist": "reads_k12.hist.good"}),
+    "reads_k12_r27": (["-k12", "-c1000"], ["reads.fq"], {"_k12.hist": "reads_r27_k12.hist.good"}),
+    "reads_multi_k": (
+        ["-k32,64,96", "-c64", "-r16"],
+        ["reads.fq"],
+        {f"_k{k}.hist": f"reads_k{k}.hist.good" for k in (32, 64, 96)},
+    ),
+    "contig_k25_k96": (
+        ["-k25,96", "-c64", "-r16"],
+        ["contig.fa"],
+        {"_k25.hist": "contig_k25.hist.good", "_k96.hist": "contig_k96.hist.good"},
+    ),
+    "both_k12": (["-k12", "-c1000", "-r16"], ["reads.fq", "contig.fa"], {"_k12.hist": "both_k12.hist.good"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GOLDENS))
+def test_golden(tmp_path, case):
+    flags, inputs, outs = GOLDENS[case]
+    rc = cli.main([*flags, "-p", str(tmp_path / "o"), *[str(DATA / f) for f in inputs]], device="cpu")
+    assert rc == 0
+    for suffix, good in outs.items():
+        assert (tmp_path / f"o{suffix}").read_bytes() == (GOLD / good).read_bytes(), suffix
+
+
+def test_compact_tsv_and_stderr(tmp_path, capsys):
+    out = tmp_path / "out.tsv"
+    rc = cli.main(["-k12,32", "-c64", "-r16", "-o", str(out), str(DATA / "reads.fq")], device="cpu")
+    assert rc == 0
+    assert out.read_bytes() == (GOLD / "reads_compact.tsv.good").read_bytes()
+    err = capsys.readouterr().err
+    klines = "".join(line + "\n" for line in err.splitlines() if line.startswith("k="))
+    assert klines == (GOLD / "reads_compact.stderr.good").read_text()
+
+
+def test_save_sketch_merges_in_the_jax_tool(tmp_path):
+    """--save-sketch writes ntcard_tpu's checkpoint format: two partial port
+    runs merged offline by ntcard_tpu's merge tool give the combined golden."""
+    from ntcard_tpu.tools import merge_sketches
+
+    for name, f in (("s1", "reads.fq"), ("s2", "contig.fa")):
+        rc = cli.main(
+            ["-k12", "-c1000", "-r16", "-p", str(tmp_path / name),
+             "--save-sketch", str(tmp_path / f"{name}.npz"), str(DATA / f)],
+            device="cpu",
+        )
+        assert rc == 0
+    rc = merge_sketches.main(
+        ["-p", str(tmp_path / "m"), "-c", "1000", str(tmp_path / "s1.npz"), str(tmp_path / "s2.npz")]
+    )
+    assert rc == 0
+    assert (tmp_path / "m_k12.hist").read_bytes() == (GOLD / "both_k12.hist.good").read_bytes()
+
+
+def test_port_never_imports_jax(tmp_path):
+    """A run in a process where importing jax fails: the port must not need it."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None  # any 'import jax' now raises\n"
+        "from ntcard_tpu_torch.cli import main\n"
+        f"rc = main(['-k12', '-c1000', '-r16', '-p', {str(tmp_path / 'o')!r}, "
+        f"{str(DATA / 'reads.fq')!r}], device='cpu')\n"
+        "assert rc == 0\n"
+        "assert not [m for m in sys.modules if m.startswith('jax') and sys.modules[m]]\n"
+        "print('NO_JAX_OK')\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code],
+        capture_output=True, text=True, cwd=str(REPO), timeout=300,
+        env=dict(os.environ, PYTHONPATH="", OMP_NUM_THREADS="2"),
+    )
+    assert r.returncode == 0, r.stderr
+    assert "NO_JAX_OK" in r.stdout
+    assert (tmp_path / "o_k12.hist").read_bytes() == (GOLD / "reads_k12.hist.good").read_bytes()
+
+
+def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["-k12", "-r16", "-p", str(tmp_path / "o"), str(DATA / "reads.fq")])
+    assert not (tmp_path / "o_k12.hist").exists()
+
+
+@pytest.mark.parametrize(
+    "flags,env",
+    [
+        (["-k12", "-g2"], {}),
+        (["-k12", "--devices", "2"], {}),
+        (["-k12", "--coordinator", "localhost:1234", "--num-hosts", "2", "--host-id", "0"], {}),
+        (["-k12"], {"NTCARD_COORDINATOR": "localhost:1234"}),
+        (["-k12"], {"NTCARD_ENGINE": "hybrid"}),
+    ],
+)
+def test_unported_features_are_refused(monkeypatch, tmp_path, flags, env):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(SystemExit, match="not ported yet") as e:
+        cli.main([*flags, "-r16", "-p", str(tmp_path / "o"), str(DATA / "reads.fq")], device="cpu")
+    assert e.value.code != 0
+    assert not (tmp_path / "o_k12.hist").exists()

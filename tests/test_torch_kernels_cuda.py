@@ -1,0 +1,129 @@
+"""The hand CUDA kernels against their plain PyTorch versions, on the card.
+
+These need a CUDA device: a CUDA kernel has no CPU mode, so without one
+every test here skips with that reason (the plain versions are held
+against the JAX package by tests/test_torch_{hash,scatter,sketch}.py). On a
+machine with the card, which has no JAX, run them without the suite's
+JAX-importing conftest:
+
+    python -m pytest --noconftest -rs tests/test_torch_kernels_cuda.py
+
+Imports nothing of JAX. Tolerance 0: every output is an integer.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)  # tier-1 runs six xdist workers
+
+from ntcard_tpu.io.packing import aligned_stride, pack_records  # noqa: E402
+from ntcard_tpu_torch.models.sketch import CountTableSketch  # noqa: E402
+from ntcard_tpu_torch.ops import scatter as S  # noqa: E402
+from ntcard_tpu_torch.ops.sketch_idx import sketch_idx, sketch_idx_plain  # noqa: E402
+
+
+@pytest.fixture
+def dev():
+    # decided when the test runs, never at import (xdist workers must all
+    # collect the same tests)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand kernels have no CPU mode (run on the H100)")
+    return torch.device("cuda")
+
+
+def _eq(a, b):
+    assert a.shape == b.shape and a.dtype == b.dtype
+    assert torch.equal(a.cpu(), b.cpu())
+
+
+def _codes(seed, B, L):
+    rng = np.random.default_rng(seed)
+    c = rng.integers(0, 4, (B, L), dtype=np.uint8)
+    c[rng.random((B, L)) < 0.01] = 4
+    c[:, rng.integers(0, L, 3)] = 4
+    return torch.from_numpy(c)
+
+
+@pytest.mark.parametrize("ks,r_bits", [((12, 32), 10), ((64, 96, 128), 27), ((5,), 16)])
+def test_sketch_idx(dev, ks, r_bits):
+    B, L = 300, 256
+    stride = ((L - max(ks) + 1) // 8) * 8
+    codes = _codes(sum(ks), B, L).to(dev)
+    want = sketch_idx_plain(codes, ks, stride, 7, r_bits)
+    _eq(sketch_idx(codes, ks, stride, 7, r_bits), want)
+    # the main path's position-major stream, passed as its transposed view
+    _eq(sketch_idx(codes.T.contiguous().T, ks, stride, 7, r_bits), want)
+
+
+def test_hist_add(dev):
+    rng = np.random.default_rng(1)
+    idx = torch.from_numpy(rng.integers(-2, 2 * 1024 + 2, 100_000).astype(np.int32)).to(dev)
+    zeros = torch.zeros(2049, dtype=torch.int32, device=dev)
+    _eq(S.hist_add(idx, 10), S.table_add_plain(zeros, idx, 2048))
+    table = torch.arange(2049, dtype=torch.int32, device=dev)
+    want = S.table_add_plain(table.clone(), idx, 2048)
+    _eq(S.hist_add(idx, 10, out=table), want)
+    with pytest.raises(ValueError):
+        S.hist_add(idx, 17)
+
+
+@pytest.mark.parametrize("cap,density", [(1024, 0.01), (256, 0.5)])
+def test_compact(dev, cap, density):
+    rng = np.random.default_rng(2)
+    sent = 1 << 27
+    idx = np.full(50_000, sent, np.int32)
+    m = rng.random(idx.size) < density
+    idx[m] = rng.integers(0, sent, m.sum())
+    idx[:3] = [sent + 1, -1, sent - 1]
+    t = torch.from_numpy(idx).to(dev)
+    (v, c), (pv, pc) = S.compact(t, sent, cap), S.compact_plain(t, sent, cap)
+    assert int(c) == int(pc) == m.sum() - (m[:3].sum()) + 1
+    if int(c) <= cap:
+        _eq(torch.sort(v).values, torch.sort(pv).values)
+    else:  # overflow: the cap is filled, never overrun
+        assert int((v >= 0).sum()) == cap
+
+
+@pytest.mark.parametrize("nbins", [1, 65, 1001, 58112, 65536])
+def test_counter_hist(dev, nbins):
+    rng = np.random.default_rng(nbins)
+    rows = rng.integers(0, 1 << 18, (2, 200_000)).astype(np.int32)
+    rows[:, ::3] = 0
+    rows[:, 1::7] = 65536 * 2
+    t = torch.from_numpy(rows).to(dev)
+    _eq(S.counter_hist(t, nbins), S.counter_hist_plain(t, nbins))
+
+
+def test_overflow_add(dev):
+    rng = np.random.default_rng(4)
+    idx = torch.from_numpy(rng.integers(-3, 515, 100_000).astype(np.int32)).to(dev)
+    base = torch.from_numpy(rng.integers(0, 9, 513).astype(np.int32)).to(dev)
+    for f in (0, 1):
+        flag = torch.full((1,), f, dtype=torch.int32, device=dev)
+        _eq(S.table_add_(base.clone(), idx, 512, gate=flag),
+            S.table_add_plain(base.clone(), idx, 512, gate=flag))
+
+
+@pytest.mark.parametrize("r_bits", [16, 18])
+def test_sketch_on_the_card_equals_cpu(dev, r_bits):
+    """The whole update and finalize on the card equals the CPU sketch,
+    including a batch that overflows the compaction cap at r18."""
+    rng = np.random.default_rng(5)
+    recs = [bytes(rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=300)) for _ in range(200)]
+    recs.append(b"ACGTTGCA" * 3000)  # periodic: repeat-heavy windows
+    ks, stride = (8, 12), aligned_stride(128, 12)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        sk = CountTableSketch(ks, 1, r_bits, stride, device=d)  # s_bits=1: dense sampling
+        for b in pack_records(recs, 128, 128, 12):
+            sk.update(torch.from_numpy(b).to(d))
+        out.append((sk.finalize(return_table=True, cov_max=300), sk.replays))
+    (gpu, g_over), (cpu, c_over) = out
+    assert g_over == c_over
+    if r_bits > 16:
+        assert g_over >= 1
+    for k in ks:
+        assert gpu[k]["f1"] == cpu[k]["f1"]
+        np.testing.assert_array_equal(gpu[k]["table"], cpu[k]["table"])
+        np.testing.assert_array_equal(gpu[k]["hist"], cpu[k]["hist"])
