@@ -9,13 +9,19 @@ prints no result):
 1. build every hand kernel from ntcard_tpu_torch/csrc with nvcc;
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, bit for bit (integer outputs, tolerance 0), and time
-   both with CUDA events;
-3. run the port CLI on the card over the reference goldens in tests/golden;
-4. the main path at full width: a seeded 1,000,000-read FASTQ (150 Mbp,
+   both with CUDA events: K1 also with spaced-seed masks, K5 at two
+   register widths;
+3. run the port CLIs on the card over the reference goldens in
+   tests/golden: ntcard (with -g2), nthll, and the offline merge of two
+   sketches the port saved;
+4. the main paths at full width: a seeded 1,000,000-read FASTQ (150 Mbp,
    30x of a 5 Mbp genome) through the port CLI at -k64,96,128 and the
-   default r = 27 (three 1.07 GB tables on the card), then at -k64 -r16;
-   each .hist must equal the native host engine's on the same file, and
-   every kernel must have been launched in these runs;
+   default r = 27 (three 1.07 GB tables on the card), at -k64 -r16, and at
+   -k64 -g2 (r = 27); each .hist must equal the native host engine's on
+   the same file; then through the port nthll at -k64, whose registers
+   and F0 line must equal the native host engine's. Each run starts with
+   every launch count at 0, and each kernel of its path must have been
+   launched in it;
 5. where the time of those runs goes: decode + pack alone against the
    end-to-end wall, device busy time and idle share (torch.profiler), and
    the device step, wire decode and finalize (CUDA events).
@@ -45,6 +51,9 @@ GOLD = REPO / "tests" / "golden"
 
 # main-path shapes: default geometry at kmax = 128 (pipeline.default_geometry)
 B, L, KS, S_BITS = 8192, 1024, (64, 96, 128), 7
+N_READS = 1_000_000  # reads of the full-size FASTQ (150 bp each)
+# spaced-seed masks at k = 64: -g2, and a gap of 12 (ntcard_tpu.cli._gap_positions)
+GAP_MASKS = ((31, 32), tuple(range(26, 38)))
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -115,6 +124,7 @@ def phase_kernels(dev, seed: int) -> list:
     from ntcard_tpu.io.packing import aligned_stride
     from ntcard_tpu_torch.models.sketch import CountTableSketch, emit_cap
     from ntcard_tpu_torch.ops import scatter as S
+    from ntcard_tpu_torch.ops.hll import hll_update_, hll_update_plain
     from ntcard_tpu_torch.ops.sketch_idx import sketch_idx, sketch_idx_plain
 
     rng = np.random.default_rng(seed)
@@ -143,6 +153,18 @@ def phase_kernels(dev, seed: int) -> list:
     plain_ms = cuda_ms(lambda: sketch_idx_plain(codes, KS, stride, S_BITS, 27), iters=3, warmup=1)
     rec("sketch_idx", "ntcard_tpu_torch/csrc/sketch_idx.cu",
         "ntcard_tpu/ops/nthash_pallas.py:215", err, ms, plain_ms)
+    # K1 with spaced seeds (a single k): the -g2 seed of k64 and a 12-gap
+    for mask in GAP_MASKS:
+        for r in (27, 16):
+            expect_equal(f"sketch_idx k64 mask {mask} r{r}",
+                         sketch_idx(codes, (64,), stride, S_BITS, r, mask),
+                         sketch_idx_plain(codes, (64,), stride, S_BITS, r, mask))
+        ms = cuda_ms(lambda: sketch_idx(codes, (64,), stride, S_BITS, 27, mask))
+        plain_ms = cuda_ms(lambda: sketch_idx_plain(codes, (64,), stride, S_BITS, 27, mask),
+                           iters=3, warmup=1)
+        unmasked_ms = cuda_ms(lambda: sketch_idx(codes, (64,), stride, S_BITS, 27))
+        print(f"  sketch_idx k64 mask of {len(mask)} at r27 and r16: bit-exact; r27 kernel "
+              f"{ms:.4f} ms (unmasked k64 {unmasked_ms:.4f} ms), plain {plain_ms:.4f} ms")
 
     # K2 at r = 16 on K1's k=64 emit stream
     flat16 = idx[16][0].reshape(-1)
@@ -213,6 +235,27 @@ def phase_kernels(dev, seed: int) -> list:
         if nbins == 1001:  # -c1000, the default
             rec("counter_hist", "ntcard_tpu_torch/csrc/counter_hist.cu",
                 "ntcard_tpu/ops/scatter_pallas.py:306", err, ms, plain_ms)
+
+    # K5 at k = 64 on the same batch: from zeros, then from a nonzero base
+    hstride = aligned_stride(L, 64)
+    for n_bits in (16, 10):
+        zeros = torch.zeros(1 << n_bits, dtype=torch.int32, device=dev)
+        err = expect_equal(f"hll_update b{n_bits}",
+                           hll_update_(zeros.clone(), codes, 64, hstride, n_bits),
+                           hll_update_plain(zeros.clone(), codes, 64, hstride, n_bits))
+        base = torch.randint(0, 8, zeros.shape, generator=gen, device=dev, dtype=torch.int32)
+        expect_equal(f"hll_update b{n_bits} from a nonzero base",
+                     hll_update_(base.clone(), codes, 64, hstride, n_bits),
+                     hll_update_plain(base.clone(), codes, 64, hstride, n_bits))
+        # repeated launches on one register array: after the first, reads
+        # settle nearly every window, as on a long input
+        ms = cuda_ms(lambda: hll_update_(zeros, codes, 64, hstride, n_bits))
+        plain_ms = cuda_ms(lambda: hll_update_plain(zeros, codes, 64, hstride, n_bits),
+                           iters=3, warmup=1)
+        print(f"  hll_update k64 b{n_bits}: bit-exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if n_bits == 16:  # nthll's default register width
+            rec("hll_update", "ntcard_tpu_torch/csrc/hll_update.cu",
+                "ntcard_tpu/models/hll.py:27", err, ms, plain_ms)
     return recs
 
 
@@ -225,6 +268,18 @@ def run_cli(argv, device, capture_stderr=False):
     if rc != 0:
         raise AssertionError(f"port CLI {argv} returned {rc}")
     return err.getvalue()
+
+
+def run_nthll(argv, device) -> str:
+    """The port nthll's standard output."""
+    from ntcard_tpu_torch.cli_hll import main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main([str(a) for a in argv], device=device)
+    if rc != 0:
+        raise AssertionError(f"port nthll {argv} returned {rc}")
+    return out.getvalue()
 
 
 def cli_metrics(stderr: str) -> dict:
@@ -259,11 +314,28 @@ def phase_goldens(tmp: Path) -> None:
     klines = "".join(line + "\n" for line in err.splitlines() if line.startswith("k="))
     if klines != (GOLD / "reads_compact.stderr.good").read_text():
         raise AssertionError("compact stderr differs from tests/golden/reads_compact.stderr.good")
-    print("  10 golden files byte-equal (reads k12 r16 and r27, k32/64/96, contig k25/k96, "
-          "both k12, compact TSV + stderr)")
+    run_cli(["-k12", "-c1000", "-r16", "-g2", "-p", tmp / "g", DATA / "reads.fq"], "cuda")
+    same("g_k12.hist", "reads-gap_k12.hist.good")
+    for flags, good in ((["-k25"], "nthll_k25.out.good"),
+                        (["-k25", "-b10"], "nthll_k25_b10.out.good")):
+        if run_nthll([*flags, DATA / "reads.fq"], "cuda") != (GOLD / good).read_text():
+            raise AssertionError(f"nthll {' '.join(flags)} differs from tests/golden/{good}")
+    sketches = []
+    for name, src in (("s1", "reads.fq"), ("s2", "contig.fa")):
+        sketches.append(tmp / f"{name}.npz")
+        run_cli(["-k12", "-c1000", "-r16", "--save-sketch", sketches[-1], "-p", tmp / name,
+                 DATA / src], "cuda")
+    from ntcard_tpu_torch.tools.merge_sketches import main as merge_main
+
+    if merge_main(["-p", str(tmp / "mg"), "-c", "1000", *map(str, sketches)], device="cuda") != 0:
+        raise AssertionError("the port merge tool failed")
+    same("mg_k12.hist", "both_k12.hist.good")
+    print("  14 golden files byte-equal (reads k12 r16 and r27, k32/64/96, contig k25/k96, "
+          "both k12, compact TSV + stderr, gap k12, nthll k25 and k25 -b10, both k12 by the "
+          "merge tool)")
 
 
-def write_fastq(path: Path, seed: int, genome_len=5_000_000, n_reads=1_000_000,
+def write_fastq(path: Path, seed: int, genome_len=5_000_000, n_reads=N_READS,
                 read_len=150, sub_rate=0.005, n_read_frac=0.01) -> None:
     """Seeded reads of a random genome: both strands, substitutions at
     ``sub_rate``, and a run of 1-10 Ns in ``n_read_frac`` of the reads."""
@@ -302,54 +374,92 @@ def write_fastq(path: Path, seed: int, genome_len=5_000_000, n_reads=1_000_000,
             f.write(rec.tobytes())
 
 
-# the full-size runs: (tag, CLI flags, ks)
+# the full-size ntcard runs: (tag, CLI flags, ks); phase 5 breaks down the
+# first two
 RUNS = [("r27", ["-k64,96,128", "-c1000"], (64, 96, 128)), ("r16", ["-k64", "-r16"], (64,))]
+GAP_RUN = ("gap", ["-k64", "-g2", "-c1000"], (64,))
 BREAKDOWN_REPS = 3  # decode-alone / wall pairs per run; the median is read
+HLL_K, HLL_BITS = 64, 16  # the full-size nthll run: nthll's defaults
+
+# the kernels each full-size path must launch
+PATH_KERNELS = {
+    "r27": ("sketch_idx", "compact", "table_add", "counter_hist"),
+    "r16": ("sketch_idx", "table_add", "counter_hist"),
+    "gap": ("sketch_idx", "compact", "table_add", "counter_hist"),
+    "nthll": ("hll_update",),
+}
+
+
+def host_hll_registers(fq: Path) -> np.ndarray:
+    """nthll's registers of ``fq`` by the native host engine, over the batch
+    stream of ntcard_tpu.cli_hll._main_host."""
+    from ntcard_tpu.io.packing import aligned_stride
+    from ntcard_tpu.models.host_engine import HostHllSketch
+    from ntcard_tpu.pipeline import default_geometry, parallel_batches_from_files, prefetch
+
+    chunk_len, batch_rows = default_geometry(HLL_K)
+    sketch = HostHllSketch(HLL_K, HLL_BITS, aligned_stride(chunk_len, HLL_K))
+    for batch in prefetch(parallel_batches_from_files(
+            [str(fq)], chunk_len, batch_rows, HLL_K, 1, lenient=True, on_error="skip")):
+        sketch.update(batch)
+    return sketch.registers()
 
 
 def phase_full(fq: Path, tmp: Path, dev) -> dict:
     import torch
 
+    from ntcard_tpu import cli_hll as host_hll
     from ntcard_tpu.cli import _main_host, parse_args
     from ntcard_tpu.models.host_engine import host_engine_available
+    from ntcard_tpu_torch.cli_hll import device_registers
     from ntcard_tpu_torch.ops import scatter as S
+    from ntcard_tpu_torch.ops.hll import hll_update_
     from ntcard_tpu_torch.ops.sketch_idx import sketch_idx
 
     if not host_engine_available():
         raise AssertionError("the native host engine (the full-size reference) is unavailable")
     wrappers = {
         "sketch_idx": sketch_idx, "table_add": S.table_add_, "compact": S.compact,
-        "counter_hist": S.counter_hist,
+        "counter_hist": S.counter_hist, "hll_update": hll_update_,
     }
-    for w in wrappers.values():
-        w.launches = 0
-    walls, after, metrics = {}, {}, {}
-    for tag, flags, _ in RUNS:
+
+    def drive(tag, fn):
+        """fn() with every count at 0 just before it, read just after; the
+        kernels of the path must have been launched."""
+        for w in wrappers.values():
+            w.launches = 0
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        err = run_cli([*flags, "--metrics", "-p", tmp / f"gpu_{tag}", fq], dev.type,
-                      capture_stderr=True)
+        out = fn()
+        torch.cuda.synchronize()
         walls[tag] = time.monotonic() - t0
-        after[tag] = {name: w.launches for name, w in wrappers.items()}
+        per_run[tag] = {name: w.launches for name, w in wrappers.items()}
+        for name in PATH_KERNELS[tag]:
+            if per_run[tag][name] <= 0:
+                raise AssertionError(f"{name} was not launched on the {tag} path")
+        return out
+
+    walls, per_run, metrics = {}, {}, {}
+    ntcard_runs = [*RUNS, GAP_RUN]
+    for tag, flags, _ in ntcard_runs:
+        err = drive(tag, lambda: run_cli([*flags, "--metrics", "-p", tmp / f"gpu_{tag}", fq],
+                                         dev.type, capture_stderr=True))
         metrics[tag] = cli_metrics(err)
-    counts = after[RUNS[-1][0]]
-    for tag, flags, ks in RUNS:
-        m = metrics[tag]
+    f0_line = drive("nthll", lambda: run_nthll([f"-k{HLL_K}", fq], dev.type))
+    for tag, flags, _ in ntcard_runs:
         print(f"  {tag} {' '.join(flags)}: wall {walls[tag]:.3f} s, "
-              f"{1_000_000 / walls[tag]:.0f} reads/s; CLI phases (s) {m['phases_sec']}")
-    print(f"  launches in the main-path runs: {counts}")
-    for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-    # table_add runs gated by the overflow flag in the r > 16 run, where a
+              f"{N_READS / walls[tag]:.0f} reads/s; CLI phases (s) {metrics[tag]['phases_sec']}")
+    print(f"  nthll -k{HLL_K}: wall {walls['nthll']:.3f} s, {N_READS / walls['nthll']:.0f} reads/s")
+    print(f"  launches in each main-path run: {json.dumps(per_run)}")
+    # table_add runs gated by the overflow flag in the r > 16 runs, where a
     # launch adds the stream only for a batch that overflowed, and ungated
     # in the r16 run
-    big = RUNS[0][0]
-    gated = after[big]["table_add"]
-    print(f"  table_add: {gated} gated launches ({big}), of which "
-          f"{int(metrics[big]['counters']['overflow_replays'])} found the flag set and added "
-          f"the full stream; {counts['table_add'] - gated} ungated adds ({RUNS[1][0]})")
-    for tag, flags, ks in RUNS:
+    for tag in ("r27", "gap"):
+        print(f"  table_add ({tag}): {per_run[tag]['table_add']} gated launches, of which "
+              f"{int(metrics[tag]['counters']['overflow_replays'])} found the flag set and "
+              "added the full stream")
+    print(f"  table_add (r16): {per_run['r16']['table_add']} ungated adds")
+    for tag, flags, ks in ntcard_runs:
         opt, files = parse_args([*flags, "-t", str(os.cpu_count() or 1), "-p",
                                  str(tmp / f"host_{tag}"), str(fq)])
         opt.s_bits = 7  # the <50 GB rule the port CLI applied
@@ -361,7 +471,19 @@ def phase_full(fq: Path, tmp: Path, dev) -> dict:
             if gpu != (tmp / f"host_{tag}_k{k}.hist").read_bytes():
                 raise AssertionError(f"{tag} k{k}: port .hist differs from the host engine's")
     print("  every .hist byte-equal to the native host engine's")
-    return counts
+    want = host_hll_registers(fq)
+    got = device_registers([str(fq)], HLL_K, HLL_BITS, 1, dev)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"nthll registers differ from the host engine's in "
+                             f"{int((got != want).sum())} of {want.size}")
+    host_out = io.StringIO()
+    with contextlib.redirect_stdout(host_out):
+        host_hll._main_host([str(fq)], HLL_K, HLL_BITS)
+    if f0_line != host_out.getvalue():
+        raise AssertionError(f"nthll F0 line {f0_line!r} vs host engine {host_out.getvalue()!r}")
+    print(f"  nthll registers equal to the host engine's ({want.size}, max {int(want.max())}); "
+          f"{f0_line.strip()}")
+    return {name: sum(c[name] for c in per_run.values()) for name in wrappers}
 
 
 def device_busy_s(prof) -> float:

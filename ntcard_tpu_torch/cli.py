@@ -18,22 +18,30 @@ import sys
 import time
 from typing import List, Optional
 
-from ntcard_tpu.cli import PROGRAM, _estimate_and_write, _select_wire, parse_args
+from ntcard_tpu.cli import PROGRAM, _estimate_and_write, _gap_positions, _select_wire, parse_args
+
+
+def unported_env():
+    """What the environment asks for that the port does not do yet (shared
+    by both CLIs), or None."""
+    if any(
+        os.environ.get(v)
+        for v in ("NTCARD_COORDINATOR", "NTCARD_NUM_PROCESSES", "NTCARD_PROCESS_ID")
+    ):
+        return "multi-host runs"
+    if os.environ.get("NTCARD_ENGINE") == "hybrid":
+        return "NTCARD_ENGINE=hybrid"
+    return None
 
 
 def _refuse_unported(opt) -> None:
     why = None
-    if opt.gap:
-        why = "-g (spaced seeds)"
-    elif opt.devices > 1:
+    if opt.devices > 1:
         why = "--devices > 1 (multi-device)"
-    elif opt.coordinator or opt.num_hosts or opt.host_id >= 0 or any(
-        os.environ.get(v)
-        for v in ("NTCARD_COORDINATOR", "NTCARD_NUM_PROCESSES", "NTCARD_PROCESS_ID")
-    ):
+    elif opt.coordinator or opt.num_hosts or opt.host_id >= 0:
         why = "multi-host runs"
-    elif os.environ.get("NTCARD_ENGINE") == "hybrid":
-        why = "NTCARD_ENGINE=hybrid"
+    else:
+        why = unported_env()
     if why:
         raise SystemExit(f"{PROGRAM}: {why} is not ported yet to ntcard_tpu_torch")
 
@@ -88,7 +96,9 @@ def _main_device(opt, in_files, s_time, dev) -> int:
     metrics = Metrics(opt.metrics)
     stats: dict = {}
     batches, stride, use_quad, halo = wire_batches(opt, in_files, stats)
-    sketch = CountTableSketch(opt.k_list, opt.s_bits, opt.r_bits, stride, device=dev)
+    sketch = CountTableSketch(
+        opt.k_list, opt.s_bits, opt.r_bits, stride, gap_positions=_gap_positions(opt), device=dev
+    )
     with metrics.phase("pipeline"):
         for batch in device_feed(batches, dev):
             packed = wire_mode_of(batch, opt.batch_rows, halo) if use_quad else True

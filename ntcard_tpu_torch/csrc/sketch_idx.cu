@@ -18,47 +18,27 @@
 // a running N count. Threads of a warp take neighbouring rows, so with the
 // position-major [L, B] stream the main path passes (strides 1, B) every
 // code load of a warp is one coalesced transaction.
+//
+// Spaced seeds (ntcard -g, a single k): each masked position p's seed
+// contributions are XORed out of the window's output F and R before the
+// canonical min (ntcard_tpu/ops/nthash.py:371-383), from two small strip
+// tables the wrapper keeps on the device; that costs n_mask more code
+// loads and table reads a window. Validity stays the full-window N count.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-typedef unsigned long long u64;
+#include "nthash.cuh"
 
 #define SEG 64
 #define THREADS 256
 
-// split rotate left by one: 33-bit ring in bits 0..32, 31-bit ring in 33..63
-__device__ __forceinline__ u64 srol1(u64 x) {
-    u64 m = ((x & 0x8000000000000000ULL) >> 30) | ((x & 0x100000000ULL) >> 32);
-    return ((x << 1) & 0xFFFFFFFDFFFFFFFFULL) | m;
-}
-
-// split rotate right by one (inverse of srol1)
-__device__ __forceinline__ u64 sror1(u64 x) {
-    u64 m = ((x & 0x200000000ULL) << 30) | ((x & 1ULL) << 32);
-    return ((x >> 1) & 0xFFFFFFFEFFFFFFFFULL) | m;
-}
-
-// P^n: rotate each ring by n mod its width
-__device__ __forceinline__ u64 srol_n(u64 x, int n) {
-    const u64 m33 = (1ULL << 33) - 1, m31 = (1ULL << 31) - 1;
-    int s33 = n % 33, s31 = n % 31;
-    u64 lo = x & m33, hi = x >> 33;
-    if (s33) lo = ((lo << s33) | (lo >> (33 - s33))) & m33;
-    if (s31) hi = ((hi << s31) | (hi >> (31 - s31))) & m31;
-    return (hi << 33) | lo;
-}
-
-// 5-entry table lookup by code as a select chain (stays in registers);
-// codes above 3 read entry 4 (N), as the JAX select chain does
-__device__ __forceinline__ u64 pick(const u64 (&a)[5], unsigned c) {
-    return c == 0 ? a[0] : c == 1 ? a[1] : c == 2 ? a[2] : c == 3 ? a[3] : a[4];
-}
-
 __global__ void __launch_bounds__(THREADS) sketch_idx_kernel(
     const uint8_t* __restrict__ codes, long long sb, long long sl, int B, int L,
     const int* __restrict__ ks, int nk, const long long* __restrict__ seeds,
-    int stride, int s_bits, int r_bits, int* __restrict__ out) {
+    const int* __restrict__ mpos, const long long* __restrict__ mf,
+    const long long* __restrict__ mr, int n_mask, int stride, int s_bits, int r_bits,
+    int* __restrict__ out) {
     const int nseg = (L + SEG - 1) / SEG;
     const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (tid >= (long long)B * nseg) return;
@@ -68,12 +48,6 @@ __global__ void __launch_bounds__(THREADS) sketch_idx_kernel(
     const int pv = max(p0, min(p1, stride));  // [p0, pv) are owned starts
     const uint8_t* row = codes + (long long)b * sb;
 
-    u64 sd[5], cs[5];
-#pragma unroll
-    for (int c = 0; c < 5; ++c) {
-        sd[c] = (u64)seeds[c];
-        cs[c] = (u64)seeds[5 + c];
-    }
     const unsigned r_buck = 1u << r_bits;
     const int sent0 = (int)(2u * r_buck), sent1 = sent0 + 1;
     const unsigned s_mask = (1u << (s_bits - 1)) - 1u;
@@ -81,34 +55,20 @@ __global__ void __launch_bounds__(THREADS) sketch_idx_kernel(
     for (int t = 0; t < nk; ++t) {
         int* o = out + ((long long)t * B + b) * L;
         if (p0 < pv) {
-            const int k = ks[t];
-            u64 rf[5], rc[5];  // P^k(seed(c)) and P^k(seed(comp c))
-#pragma unroll
-            for (int c = 0; c < 5; ++c) {
-                rf[c] = srol_n(sd[c], k);
-                rc[c] = srol_n(cs[c], k);
-            }
-            // direct hash of the window at p0 (nthash.hpp:220-239)
+            const NtSeeds seed(seeds, ks[t]);
             u64 F = 0, R = 0;
             int nn = 0;
-            for (int j = 0; j < k; ++j) {
-                unsigned c = row[(long long)(p0 + j) * sl];
-                F = srol1(F) ^ pick(sd, c);
-                nn += c == 4;
-            }
-            for (int j = k - 1; j >= 0; --j) {
-                unsigned c = row[(long long)(p0 + j) * sl];
-                R = srol1(R) ^ pick(cs, c);
-            }
             for (int p = p0; p < pv; ++p) {
-                if (p > p0) {  // roll one base: out = p-1, in = p+k-1
-                    unsigned co = row[(long long)(p - 1) * sl];
-                    unsigned ci = row[(long long)(p + k - 1) * sl];
-                    F = srol1(F) ^ pick(sd, ci) ^ pick(rf, co);
-                    R = sror1(R ^ pick(rc, ci) ^ pick(cs, co));
-                    nn += (int)(ci == 4) - (int)(co == 4);
+                nthash_step(row, sl, p, ks[t], p == p0, seed, F, R, nn);
+                // spaced seeds strip the masked positions from this window's
+                // output only; the rolling state stays the full-k hash
+                u64 f = F, r = R;
+                for (int m = 0; m < n_mask; ++m) {
+                    const unsigned c = min((unsigned)row[(long long)(p + mpos[m]) * sl], 4u);
+                    f ^= (u64)mf[m * 5 + c];
+                    r ^= (u64)mr[m * 5 + c];
                 }
-                const u64 h = F < R ? F : R;
+                const u64 h = f < r ? f : r;
                 const unsigned hi = (unsigned)(h >> 32), lo = (unsigned)h;
                 const bool s0 = (hi >> (31 - s_bits)) == 1u;
                 const bool s1 = (hi >> (32 - s_bits)) == s_mask;
@@ -123,17 +83,21 @@ __global__ void __launch_bounds__(THREADS) sketch_idx_kernel(
 
 // codes: uint8 [B, L] with element strides (sb, sl); ks: int32 [nk] on the
 // device; seeds: int64 [10] on the device (seed by code, then the
-// complement base's seed by code); out: int32 [nk, B, L] contiguous.
-// Requires stride + max(ks) - 1 <= L (the wrapper checks). Returns the
-// cudaError_t of the launch.
+// complement base's seed by code); spaced seeds (nk == 1 only): mpos int32
+// [n_mask] masked positions, mf and mr int64 [n_mask, 5] strip tables by
+// code (P^(k-1-p)(seed(c)) and P^p(seed(comp c))), all null when n_mask is
+// 0; out: int32 [nk, B, L] contiguous. Requires stride + max(ks) - 1 <= L
+// (the wrapper checks). Returns the cudaError_t of the launch.
 extern "C" int ntc_sketch_idx(const void* codes, long long sb, long long sl, int B, int L,
-                              const void* ks, int nk, const void* seeds, int stride,
+                              const void* ks, int nk, const void* seeds, const void* mpos,
+                              const void* mf, const void* mr, int n_mask, int stride,
                               int s_bits, int r_bits, void* out, void* stream) {
     const long long n = (long long)B * ((L + SEG - 1) / SEG);
     if (n == 0) return 0;
     const int grid = (int)((n + THREADS - 1) / THREADS);
     sketch_idx_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)codes, sb, sl, B, L, (const int*)ks, nk, (const long long*)seeds,
-        stride, s_bits, r_bits, (int*)out);
+        (const int*)mpos, (const long long*)mf, (const long long*)mr, n_mask, stride, s_bits,
+        r_bits, (int*)out);
     return (int)cudaGetLastError();
 }

@@ -43,7 +43,9 @@ def emit_cap(n: int) -> int:
 class CountTableSketch:
     """Streaming ntcard sketch on one device: :meth:`update` with wire or
     code batches, :meth:`finalize` for the counter-value histograms and the
-    exact F1 counts."""
+    exact F1 counts. ``gap_positions`` (spaced seeds, a single k) are the
+    masked positions of the seed, as ntcard_tpu.cli._gap_positions makes
+    them."""
 
     def __init__(
         self,
@@ -54,8 +56,6 @@ class CountTableSketch:
         gap_positions: Sequence[int] | None = None,
         device="cpu",
     ):
-        if gap_positions:
-            raise NotImplementedError("spaced seeds (-g) are not ported yet to ntcard_tpu_torch")
         if stride % 8 or stride < 8:
             raise ValueError(
                 f"stride ({stride}) must be a positive multiple of 8 — use "
@@ -65,7 +65,7 @@ class CountTableSketch:
         self.s_bits = s_bits
         self.r_bits = r_bits
         self.stride = stride
-        self.gap_positions = None
+        self.gap_positions = tuple(gap_positions) if gap_positions else None
         self.r_buck = 1 << r_bits
         self.device = torch.device(device)
         nk = len(self.ks)
@@ -87,7 +87,9 @@ class CountTableSketch:
         """codes: a [B, L] uint8 code batch, or a wire batch when ``packed``
         (see ntcard_tpu_torch.ops.nthash.codes_T), on the sketch's device."""
         cT = codes_T(codes, packed)  # [L, B]
-        idx = sketch_idx(cT.T, self.ks, self.stride, self.s_bits, self.r_bits)
+        idx = sketch_idx(
+            cT.T, self.ks, self.stride, self.s_bits, self.r_bits, self.gap_positions
+        )
         sent = 2 * self.r_buck
         for t in range(len(self.ks)):
             flat = idx[t].reshape(-1)
@@ -139,7 +141,7 @@ class CountTableSketch:
             s_bits=self.s_bits,
             r_bits=self.r_bits,
             stride=self.stride,
-            gap=np.asarray([], np.int64),
+            gap=np.asarray(self.gap_positions or [], np.int64),
         )
 
     @classmethod

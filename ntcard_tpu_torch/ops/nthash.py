@@ -2,15 +2,17 @@
 of ntcard_tpu/ops/nthash.py).
 
 These are XLA code in the JAX package, not Pallas kernels, so they stay
-plain tensor code here. On the main path only the wire decode runs on the
+plain tensor code here. On the main paths only the wire decode runs on the
 card as tensor code; hashing, sampling and bucketing run in the hand kernel
-K1 (ops/sketch_idx.py), whose plain version is built from
-:func:`window_hashes_doubling` and :func:`make_sketch_emit` below.
+K1 (ops/sketch_idx.py), and hashing and the HLL register update in K5
+(ops/hll.py), whose plain versions are built from
+:func:`window_hashes_doubling`, :func:`make_sketch_emit` and
+:func:`make_hll_emit` below.
 
 Layout follows the JAX package: decoded code streams are position-major
 ``[L, B]`` (chunk row b is column b). Hashes are uint64 bit patterns in
-int64 tensors (ops/u64.py). Spaced seeds (``mask_positions``) are not
-ported yet.
+int64 tensors (ops/u64.py). Spaced seeds (``mask_positions``, a single k)
+strip the masked positions' seed contributions before the canonical min.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 
 from ntcard_tpu import constants as C
 from ntcard_tpu_torch.ops import u64
-from ntcard_tpu_torch.ops.rotations import comp_seed_table, seed_table, srol_n
+from ntcard_tpu_torch.ops.rotations import comp_seed_table, seed_table, srol_n, strip_tables
 
 N_CODE = C.N
 _I64_MAX = (1 << 63) - 1
@@ -119,7 +121,10 @@ def codes_T(codes: torch.Tensor, packed) -> torch.Tensor:
 
 
 def window_hashes_doubling(
-    cT: torch.Tensor, ks: Sequence[int], stride: int
+    cT: torch.Tensor,
+    ks: Sequence[int],
+    stride: int,
+    mask_positions: Sequence[int] | None = None,
 ) -> Dict[int, Tuple[torch.Tensor, torch.Tensor]]:
     """Canonical ntHash of every owned window, by window doubling.
 
@@ -131,7 +136,13 @@ def window_hashes_doubling(
         Wr[a+b](i) = Wr[a](i) ^ P^a(Wr[b](i+a)),
 
     from Wf[1](i) = seed(b_i) and Wr[1](i) = seed(comp b_i), exactly as
-    ntcard_tpu.ops.nthash.window_hashes_doubling does."""
+    ntcard_tpu.ops.nthash.window_hashes_doubling does. With
+    ``mask_positions`` (spaced seeds, a single k) each masked position p's
+    contributions P^(k-1-p)(seed(b_{i+p})) and P^p(seed(comp b_{i+p})) are
+    XORed out of F and R before the min; validity stays the full-window N
+    test, masked positions included (nthash_ref.spaced_kmer_hashes)."""
+    if mask_positions and len(ks) != 1:
+        raise ValueError("spaced seeds support a single k only (reference parity)")
     L = cT.shape[0]
     S = stride
     if S + max(ks) - 1 > L:
@@ -169,7 +180,14 @@ def window_hashes_doubling(
             else:
                 acc, alen = compose(*acc, alen, *pow2[p], p), alen + p
         fh, rh, has_n = acc
-        out[k] = (u64.umin(fh[:S], rh[:S]), ~has_n[:S])
+        fh, rh = fh[:S], rh[:S]
+        if mask_positions:
+            ft, rt = strip_tables(k, mask_positions, cT.device)
+            for j, p in enumerate(mask_positions):
+                cp = cT[p : p + S]
+                fh = fh ^ u64.lut5(cp, ft[j])
+                rh = rh ^ u64.lut5(cp, rt[j])
+        out[k] = (u64.umin(fh, rh), ~has_n[:S])
     return out
 
 
@@ -206,16 +224,54 @@ def sketch_scan(
     stride: int,
     s_bits: int,
     r_bits: int,
+    mask_positions: Sequence[int] | None = None,
     packed=False,
 ) -> Tuple[Dict[int, torch.Tensor], Dict[int, torch.Tensor]]:
     """Per k, a flat [stride*B] int32 emit stream (position-major, sentinel
     2^(r_bits+1) where no update) and the valid-window count (F1 share), as
     ntcard_tpu.ops.nthash.sketch_scan."""
     emit = make_sketch_emit(s_bits, r_bits)
-    hashes = window_hashes_doubling(codes_T(codes, packed), tuple(ks), stride)
+    hashes = window_hashes_doubling(codes_T(codes, packed), tuple(ks), stride, mask_positions)
     idx, f1 = {}, {}
     for k in ks:
         h, valid = hashes[k]
         idx[k] = emit(h, valid).reshape(-1)
         f1[k] = valid.sum()
     return idx, f1
+
+
+def clz64(x: torch.Tensor) -> torch.Tensor:
+    """Leading zeros of each uint64 bit pattern (int64 tensor), by a binary
+    search of masked logical shifts; 63 for 0, which callers mask out."""
+    n = torch.zeros_like(x)
+    for s in (32, 16, 8, 4, 2, 1):
+        top_zero = u64.lsr(x, 64 - s) == 0  # the top s bits are all 0
+        n = n + torch.where(top_zero, s, 0)
+        x = torch.where(top_zero, x << s, x)
+    return n
+
+
+def make_hll_emit(n_bits: int):
+    """nthll's register update inputs (nthll.cpp:92-97), as
+    ntcard_tpu.ops.nthash.make_hll_emit: register index = h & (2^n_bits - 1);
+    value = clz64(h & ~(2^n_bits - 1)), or 0 when that masked value is 0 or
+    the window is invalid (a max with 0 changes nothing)."""
+    if not 1 <= n_bits <= 31:
+        raise ValueError(f"n_bits must be in [1,31], got {n_bits}")
+    mask = (1 << n_bits) - 1
+
+    def emit(h: torch.Tensor, valid: torch.Tensor):
+        high = h & ~mask
+        run0 = torch.where(valid & (high != 0), clz64(high), 0).to(torch.int32)
+        return (h & mask).to(torch.int32), run0
+
+    return emit
+
+
+def hll_scan(codes: torch.Tensor, k: int, stride: int, n_bits: int, packed=False):
+    """Flat [stride*B] (register index, run0) of every owned window, as
+    ntcard_tpu.ops.nthash.hll_scan."""
+    emit = make_hll_emit(n_bits)
+    h, valid = window_hashes_doubling(codes_T(codes, packed), (k,), stride)[k]
+    reg, run0 = emit(h, valid)
+    return reg.reshape(-1), run0.reshape(-1)

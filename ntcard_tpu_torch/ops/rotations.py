@@ -43,3 +43,30 @@ def comp_seed_table(device=None) -> torch.Tensor:
     return torch.tensor(
         [as_i64(C.SEEDS[C.COMP_CODE[b]]) for b in range(5)], dtype=torch.int64, device=device
     )
+
+
+_DEVICE_SEEDS: dict = {}
+
+
+def device_seeds(device: torch.device) -> torch.Tensor:
+    """(10,) int64 on ``device``: seed_table then comp_seed_table, the seed
+    input of the hand kernels; made once per device, so no launch copies it."""
+    if device not in _DEVICE_SEEDS:
+        _DEVICE_SEEDS[device] = torch.cat([seed_table(), comp_seed_table()]).to(device)
+    return _DEVICE_SEEDS[device]
+
+
+def strip_tables(k: int, mask_positions, device=None):
+    """Spaced-seed strip tables, two (n_mask, 5) int64 tensors by base code:
+    the forward contribution P^(k-1-p)(seed(b)) and the reverse one
+    P^p(seed(comp b)) of a base b at masked position p
+    (ntcard_tpu/ops/nthash.py:371-383)."""
+
+    def table(rows):
+        return torch.tensor(
+            [[as_i64(v) for v in row] for row in rows], dtype=torch.int64, device=device
+        ).reshape(len(rows), 5)
+
+    fwd = [[C.rot_seed(b, k - 1 - p) for b in range(5)] for p in mask_positions]
+    rev = [[C.rot_seed(C.COMP_CODE[b], p) for b in range(5)] for p in mask_positions]
+    return table(fwd), table(rev)

@@ -1,4 +1,5 @@
-"""The port's CLI (ntcard_tpu_torch.cli) on the CPU: byte parity with the
+"""The port's CLI (ntcard_tpu_torch.cli) and offline merge tool
+(ntcard_tpu_torch.tools.merge_sketches) on the CPU: byte parity with the
 reference goldens, no jax import, the explicit device rule, and the refusal
 of what is not ported yet."""
 
@@ -13,6 +14,7 @@ import torch
 torch.set_num_threads(2)  # tier-1 runs six xdist workers
 
 from ntcard_tpu_torch import cli  # noqa: E402
+from ntcard_tpu_torch.tools import merge_sketches as port_merge  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
 DATA = Path(__file__).parent / "data"
@@ -106,7 +108,7 @@ def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize(
     "flags,env",
     [
-        (["-k12", "-g2"], {}),
+        (["-k12"], {"NTCARD_NUM_PROCESSES": "2"}),
         (["-k12", "--devices", "2"], {}),
         (["-k12", "--coordinator", "localhost:1234", "--num-hosts", "2", "--host-id", "0"], {}),
         (["-k12"], {"NTCARD_COORDINATOR": "localhost:1234"}),
@@ -120,3 +122,70 @@ def test_unported_features_are_refused(monkeypatch, tmp_path, flags, env):
         cli.main([*flags, "-r16", "-p", str(tmp_path / "o"), str(DATA / "reads.fq")], device="cpu")
     assert e.value.code != 0
     assert not (tmp_path / "o_k12.hist").exists()
+
+
+def _port_sketch(tmp_path, name, src):
+    rc = cli.main(
+        ["-k12", "-c1000", "-r16", "-p", str(tmp_path / name),
+         "--save-sketch", str(tmp_path / f"{name}.npz"), str(DATA / src)],
+        device="cpu",
+    )
+    assert rc == 0
+    return str(tmp_path / f"{name}.npz")
+
+
+def _jax_sketch(monkeypatch, tmp_path, name, src):
+    """A sketch saved by the JAX package's own device path."""
+    from ntcard_tpu.cli import main as jax_main
+
+    monkeypatch.setenv("NTCARD_ENGINE", "device")
+    rc = jax_main(
+        ["-k12", "-c1000", "-r16", "-p", str(tmp_path / name),
+         "--save-sketch", str(tmp_path / f"{name}.npz"), str(DATA / src)]
+    )
+    monkeypatch.delenv("NTCARD_ENGINE")
+    assert rc == 0
+    return str(tmp_path / f"{name}.npz")
+
+
+@pytest.mark.parametrize("saved_by", ["port+port", "jax+port", "port+jax"])
+def test_merge_tool_golden(monkeypatch, tmp_path, saved_by):
+    """The port's merge tool over partial sketches of reads.fq and contig.fa
+    gives the combined golden, whichever package saved each sketch."""
+    first, second = saved_by.split("+")
+    paths = []
+    for who, name, src in ((first, "s1", "reads.fq"), (second, "s2", "contig.fa")):
+        if who == "jax":
+            paths.append(_jax_sketch(monkeypatch, tmp_path, name, src))
+        else:
+            paths.append(_port_sketch(tmp_path, name, src))
+    rc = port_merge.main(["-p", str(tmp_path / "m"), "-c", "1000", *paths], device="cpu")
+    assert rc == 0
+    assert (tmp_path / "m_k12.hist").read_bytes() == (GOLD / "both_k12.hist.good").read_bytes()
+    rc = port_merge.main(["-o", str(tmp_path / "m.tsv"), *paths], device="cpu")
+    assert rc == 0
+    assert (tmp_path / "m.tsv").stat().st_size > 0
+
+
+def test_merge_tool_refuses_bad_usage_and_mixed_configs(tmp_path, capsys):
+    assert port_merge.main(["s.npz"], device="cpu") == 1
+    assert "usage: merge_sketches" in capsys.readouterr().err
+    assert port_merge.main(["--bogus", "-p", "x", "s.npz"], device="cpu") == 1
+    a = _port_sketch(tmp_path, "a", "reads.fq")
+    rc = cli.main(
+        ["-k12", "-c1000", "-r16", "-g2", "-p", str(tmp_path / "g"),
+         "--save-sketch", str(tmp_path / "g.npz"), str(DATA / "reads.fq")],
+        device="cpu",
+    )
+    assert rc == 0
+    with pytest.raises(ValueError, match="configs differ"):
+        port_merge.main(["-p", str(tmp_path / "m"), a, str(tmp_path / "g.npz")], device="cpu")
+    assert not (tmp_path / "m_k12.hist").exists()
+
+
+def test_merge_tool_default_device_without_cuda_raises(monkeypatch, tmp_path):
+    path = _port_sketch(tmp_path, "a", "reads.fq")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_merge.main(["-p", str(tmp_path / "m"), path])
+    assert not (tmp_path / "m_k12.hist").exists()

@@ -18,8 +18,10 @@ import torch
 torch.set_num_threads(2)  # tier-1 runs six xdist workers
 
 from ntcard_tpu.io.packing import aligned_stride, pack_records  # noqa: E402
+from ntcard_tpu_torch.models.hll import HllSketch  # noqa: E402
 from ntcard_tpu_torch.models.sketch import CountTableSketch  # noqa: E402
 from ntcard_tpu_torch.ops import scatter as S  # noqa: E402
+from ntcard_tpu_torch.ops.hll import hll_update_, hll_update_plain  # noqa: E402
 from ntcard_tpu_torch.ops.sketch_idx import sketch_idx, sketch_idx_plain  # noqa: E402
 
 
@@ -54,6 +56,50 @@ def test_sketch_idx(dev, ks, r_bits):
     _eq(sketch_idx(codes, ks, stride, 7, r_bits), want)
     # the main path's position-major stream, passed as its transposed view
     _eq(sketch_idx(codes.T.contiguous().T, ks, stride, 7, r_bits), want)
+
+
+@pytest.mark.parametrize(
+    "k,mask,r_bits",
+    [(12, (5, 6), 10), (13, (4, 5, 6), 16), (64, (31, 32), 27), (64, tuple(range(26, 38)), 16)],
+)
+def test_sketch_idx_masked(dev, k, mask, r_bits):
+    B, L = 300, 256
+    stride = ((L - k + 1) // 8) * 8
+    codes = _codes(k + len(mask), B, L).to(dev)
+    want = sketch_idx_plain(codes, (k,), stride, 3, r_bits, mask)
+    _eq(sketch_idx(codes, (k,), stride, 3, r_bits, mask), want)
+    _eq(sketch_idx(codes.T.contiguous().T, (k,), stride, 3, r_bits, mask), want)
+    # the unmasked launch after a masked one is unchanged
+    plain = sketch_idx_plain(codes, (k,), stride, 3, r_bits)
+    _eq(sketch_idx(codes, (k,), stride, 3, r_bits), plain)
+    with pytest.raises(ValueError, match="single k"):
+        sketch_idx(codes, (k, k + 1), stride, 3, r_bits, mask)
+
+
+@pytest.mark.parametrize("k,n_bits", [(5, 10), (25, 16), (64, 16), (64, 10), (31, 20)])
+def test_hll_update(dev, k, n_bits):
+    B, L = 300, 256
+    stride = ((L - k + 1) // 8) * 8
+    codes = _codes(k + n_bits, B, L).to(dev)
+    for view in (codes, codes.T.contiguous().T):
+        base = torch.randint(0, 4, (1 << n_bits,), dtype=torch.int32, device=dev)
+        before = hll_update_.launches
+        got = hll_update_(base.clone(), view, k, stride, n_bits)
+        assert hll_update_.launches == before + 1
+        _eq(got, hll_update_plain(base.clone(), view, k, stride, n_bits))
+
+
+def test_hll_sketch_on_the_card_equals_cpu(dev):
+    rng = np.random.default_rng(6)
+    recs = [bytes(rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=300)) for _ in range(200)]
+    stride = aligned_stride(160, 25)
+    regs = []
+    for d in (dev, torch.device("cpu")):
+        sk = HllSketch(25, 12, stride, device=d)
+        for b in pack_records(recs, 160, 128, 25):
+            sk.update(torch.from_numpy(b).to(d))
+        regs.append(sk.registers())
+    np.testing.assert_array_equal(regs[0], regs[1])
 
 
 def test_hist_add(dev):

@@ -141,8 +141,3 @@ def test_merge_equals_one_pass():
     _assert_same(a.finalize(True, 200), whole.finalize(True, 200))
     with pytest.raises(ValueError):
         a.merge_(CountTableSketch(KS, S_BITS, 12, STRIDE + 8))
-
-
-def test_spaced_seeds_are_refused():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        CountTableSketch((12,), S_BITS, 12, STRIDE, gap_positions=(5, 6))
