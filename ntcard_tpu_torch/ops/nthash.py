@@ -268,10 +268,10 @@ def make_hll_emit(n_bits: int):
     return emit
 
 
-def hll_scan(codes: torch.Tensor, k: int, stride: int, n_bits: int, packed=False):
-    """Flat [stride*B] (register index, run0) of every owned window, as
-    ntcard_tpu.ops.nthash.hll_scan."""
+def hll_scan(codes: torch.Tensor, k: int, stride: int, n_bits: int):
+    """Flat [stride*B] (register index, run0) of every owned window of a
+    [B, L] code batch, as ntcard_tpu.ops.nthash.hll_scan on raw codes."""
     emit = make_hll_emit(n_bits)
-    h, valid = window_hashes_doubling(codes_T(codes, packed), (k,), stride)[k]
+    h, valid = window_hashes_doubling(codes.T, (k,), stride)[k]
     reg, run0 = emit(h, valid)
     return reg.reshape(-1), run0.reshape(-1)

@@ -183,6 +183,28 @@ def test_merge_tool_refuses_bad_usage_and_mixed_configs(tmp_path, capsys):
     assert not (tmp_path / "m_k12.hist").exists()
 
 
+@pytest.mark.parametrize(
+    "argv",
+    [[], ["s.npz"], ["-p", "x"], ["--bogus", "-p", "x", "s.npz"], ["-c"], ["-q", "s.npz"],
+     ["-c", "x", "-p", "x", "s.npz"]],
+)
+def test_merge_tool_flags_and_messages_match_jax(capsys, argv):
+    """The flag loop written again here against ntcard_tpu.tools.merge_sketches'
+    (none of these cases loads a sketch)."""
+    from ntcard_tpu.tools import merge_sketches as jax_merge
+
+    out = []
+    for fn in (port_merge.main, jax_merge.main):
+        try:
+            rc = fn(list(argv))
+        except ValueError as e:
+            rc = ("ValueError", str(e))
+        cap = capsys.readouterr()
+        out.append((rc, cap.out, cap.err))
+    assert out[0] == out[1]
+    assert out[0][0] != 0
+
+
 def test_merge_tool_default_device_without_cuda_raises(monkeypatch, tmp_path):
     path = _port_sketch(tmp_path, "a", "reads.fq")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
