@@ -6,28 +6,36 @@
 Phases (each one raises on a failure; the script then exits nonzero and
 prints no result):
 
-1. build every hand kernel from ntcard_tpu_torch/csrc with nvcc;
+1. build every hand kernel from ntcard_tpu_torch/csrc with nvcc (and print
+   what ptxas says of each: registers, spills), and the port's native
+   decode + pack library with g++;
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, bit for bit (integer outputs, tolerance 0), and time
-   both with CUDA events: K1 also with spaced-seed masks, K5 at two
-   register widths;
+   both with CUDA events, beside the one PyTorch call that comes nearest to
+   the kernel's function where there is one (the port never calls it) and
+   beside the kernel's bound: the larger of the bytes it must move over
+   3.35 TB/s and the int32 operations these inputs need over the card's
+   INT32 peak (SMs x 64 lanes x the maximum SM clock). K1 also with
+   spaced-seed masks, K4 at five nbins, K5 at two register widths;
 3. run the port CLIs on the card over the reference goldens in
    tests/golden: ntcard (with -g2), nthll, and the offline merge of two
    sketches the port saved;
 4. the main paths at full width: a seeded 1,000,000-read FASTQ (150 Mbp,
    30x of a 5 Mbp genome) through the port CLI at -k64,96,128 and the
    default r = 27 (three 1.07 GB tables on the card), at -k64 -r16, and at
-   -k64 -g2 (r = 27); each .hist must equal the native host engine's on
-   the same file; then through the port nthll at -k64, whose registers
-   and F0 line must equal the native host engine's. Each run starts with
-   every launch count at 0, and each kernel of its path must have been
-   launched in it;
+   -k64 -g2 (r = 27); each .hist must equal the one the port's native host
+   engine (ntcard_tpu_torch.models.host_engine, an independent C++ hash and
+   count) writes from the same file; then through the port nthll at -k64,
+   whose registers and F0 line must equal the host engine's. Each run
+   starts with every launch count at 0, and each kernel of its path must
+   have been launched in it;
 5. where the time of those runs goes: decode + pack alone against the
    end-to-end wall, device busy time and idle share (torch.profiler), and
    the device step, wire decode and finalize (CUDA events).
 
 The last two lines are a {"kernels": [...]} record and the result line
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+{"ok": true, "device": {...}}. Imports nothing of JAX and nothing of
+ntcard_tpu: it fails if either was loaded.
 """
 
 from __future__ import annotations
@@ -52,8 +60,20 @@ GOLD = REPO / "tests" / "golden"
 # main-path shapes: default geometry at kmax = 128 (pipeline.default_geometry)
 B, L, KS, S_BITS = 8192, 1024, (64, 96, 128), 7
 N_READS = 1_000_000  # reads of the full-size FASTQ (150 bp each)
-# spaced-seed masks at k = 64: -g2, and a gap of 12 (ntcard_tpu.cli._gap_positions)
+# spaced-seed masks at k = 64: -g2, and a gap of 12 (cli.gap_positions)
 GAP_MASKS = ((31, 32), tuple(range(26, 38)))
+K4_NBINS = (1, 65, 1001, 58112, 65536)  # 1001: -c1000, the default
+
+# the card's peaks: HBM3 at 3.35 TB/s, and 64 INT32 lanes an SM at the
+# maximum SM clock (set in main from nvidia-smi and the device)
+HBM_BYTES_PER_S = 3.35e12
+INT32_PER_S = 0.0
+# the least int32 operations a window and k needs on 32-bit halves
+# (derivation in PERF.md): one rolling step through tables that combine the
+# incoming and outgoing base, ntcard's emit, nthll's emit, and the strip of
+# one masked position; memory reads and stores are counted as bytes only
+OPS_ROLL, OPS_EMIT, OPS_HLL_EMIT, OPS_STRIP = 20, 15, 13, 6
+OPS_SCAN = 3  # a table-update or histogram pass: range test, test, add
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -98,30 +118,60 @@ def random_codes(rng, rows: int, cols: int) -> np.ndarray:
     return codes
 
 
+def bound_ms(nbytes: float, ops: float):
+    """(least time in ms the card needs for the work, what bounds it)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def sampled_repeat_batch(k: int, stride: int, period: int = 8):
     """One [B, L] batch of a record with a short period whose k-mer passes
     the sample test, so one in ``period`` windows is sampled and the count
     exceeds the compaction cap (the telomeric-repeat shape of
-    __graft_entry__._dryrun_production_paths)."""
-    from ntcard_tpu.io.packing import pack_records
-    from ntcard_tpu.ops import nthash_ref as R
+    __graft_entry__._dryrun_production_paths). The unit's k-mer is hashed by
+    the port's plain version on the CPU."""
+    import torch
+
+    from ntcard_tpu_torch.constants import ASCII_TO_CODE
+    from ntcard_tpu_torch.io.packing import pack_records
+    from ntcard_tpu_torch.ops.nthash import window_hashes_doubling
 
     rng = np.random.default_rng(99)
     smask = (1 << (S_BITS - 1)) - 1
     alphabet = np.frombuffer(b"ACGT", np.uint8)
     while True:
         unit = bytes(rng.choice(alphabet, size=period))
-        hi = R.ntc64(R.seq_to_codes(unit * (k // period)), k) >> 32
+        kmer = ASCII_TO_CODE[np.frombuffer(unit * (k // period), np.uint8)]
+        h, _ = window_hashes_doubling(torch.from_numpy(kmer)[:, None], (k,), 1)[k]
+        hi = (int(h) >> 32) & 0xFFFFFFFF
         if (hi >> (31 - S_BITS)) == 1 or (hi >> (32 - S_BITS)) == smask:
             break
     record = unit * ((B * stride + 2 * L) // period)
     return next(iter(pack_records([record], L, B, max(KS))))
 
 
+def table_add_library_ms(flat, sent: int) -> float:
+    """The fastest of the three PyTorch calls that count an emit stream into
+    a table with room for both sentinels (K2's function); prints each."""
+    import torch
+
+    idx, ones = flat.long(), torch.ones_like(flat)
+    table = torch.zeros(sent + 2, dtype=torch.int32, device=flat.device)
+    times = {
+        "index_put_ accumulate": cuda_ms(
+            lambda: table.index_put_((idx,), ones, accumulate=True), iters=3, warmup=1),
+        "index_add_": cuda_ms(lambda: table.index_add_(0, idx, ones)),
+        "bincount": cuda_ms(lambda: torch.bincount(flat, minlength=sent + 2)),
+    }
+    print("  library calls for K2: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+    return min(times.values())
+
+
 def phase_kernels(dev, seed: int) -> list:
     import torch
 
-    from ntcard_tpu.io.packing import aligned_stride
+    from ntcard_tpu_torch.io.packing import aligned_stride
     from ntcard_tpu_torch.models.sketch import CountTableSketch, emit_cap
     from ntcard_tpu_torch.ops import scatter as S
     from ntcard_tpu_torch.ops.hll import hll_update_, hll_update_plain
@@ -134,12 +184,23 @@ def phase_kernels(dev, seed: int) -> list:
     codes = cT.T
     recs = []
 
-    def rec(name, source, replaces, err, ms, plain_ms):
+    def rec(name, source, replaces, err, ms, plain_ms, nbytes, ops, library_ms=None):
+        bound, by = bound_ms(nbytes, ops)
         recs.append(
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-             "launches": 0, "max_abs_err": err, "ms": round(ms, 4), "plain_ms": round(plain_ms, 4)}
+             "launches": 0, "max_abs_err": err, "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+             "bound_ms": round(bound, 4), "bound_by": by, "share_of_bound": round(bound / ms, 4),
+             "library_ms": None if library_ms is None else round(library_ms, 4)}
         )
-        print(f"  {name}: max_abs_err {err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        lib = "no single call" if library_ms is None else f"{library_ms:.4f} ms"
+        print(f"  {name}: max_abs_err {err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library {lib}, bound {bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of it")
+
+    def table_bytes(flat, sent):
+        """The emit stream read once, and each table entry it adds to read
+        and written once."""
+        kept = flat[(flat >= 0) & (flat < sent)]
+        return 4 * flat.numel() + 8 * torch.unique(kept).numel()
 
     # K1 at r = 27 and r = 16
     idx = {}
@@ -149,22 +210,29 @@ def phase_kernels(dev, seed: int) -> list:
         err = expect_equal(f"sketch_idx r{r}", got, want)
         idx[r] = got
         print(f"  sketch_idx r{r}: bit-exact over {got.numel()} emit indices")
-    ms = cuda_ms(lambda: sketch_idx(codes, KS, stride, S_BITS, 27))
-    plain_ms = cuda_ms(lambda: sketch_idx_plain(codes, KS, stride, S_BITS, 27), iters=3, warmup=1)
+    windows = B * stride  # owned window starts a k; the rest of a row is S1
     rec("sketch_idx", "ntcard_tpu_torch/csrc/sketch_idx.cu",
-        "ntcard_tpu/ops/nthash_pallas.py:215", err, ms, plain_ms)
-    # K1 with spaced seeds (a single k): the -g2 seed of k64 and a 12-gap
+        "ntcard_tpu/ops/nthash_pallas.py:215", err,
+        cuda_ms(lambda: sketch_idx(codes, KS, stride, S_BITS, 27)),
+        cuda_ms(lambda: sketch_idx_plain(codes, KS, stride, S_BITS, 27), iters=3, warmup=1),
+        B * L + 4 * len(KS) * B * L, len(KS) * windows * (OPS_ROLL + OPS_EMIT))
+    # K1 with spaced seeds (a single k): the -g2 seed of k64, the main
+    # path's gap run, and a 12-gap
     for mask in GAP_MASKS:
         for r in (27, 16):
-            expect_equal(f"sketch_idx k64 mask {mask} r{r}",
-                         sketch_idx(codes, (64,), stride, S_BITS, r, mask),
-                         sketch_idx_plain(codes, (64,), stride, S_BITS, r, mask))
+            err = expect_equal(f"sketch_idx k64 mask {mask} r{r}",
+                               sketch_idx(codes, (64,), stride, S_BITS, r, mask),
+                               sketch_idx_plain(codes, (64,), stride, S_BITS, r, mask))
         ms = cuda_ms(lambda: sketch_idx(codes, (64,), stride, S_BITS, 27, mask))
         plain_ms = cuda_ms(lambda: sketch_idx_plain(codes, (64,), stride, S_BITS, 27, mask),
                            iters=3, warmup=1)
         unmasked_ms = cuda_ms(lambda: sketch_idx(codes, (64,), stride, S_BITS, 27))
         print(f"  sketch_idx k64 mask of {len(mask)} at r27 and r16: bit-exact; r27 kernel "
               f"{ms:.4f} ms (unmasked k64 {unmasked_ms:.4f} ms), plain {plain_ms:.4f} ms")
+        if mask == GAP_MASKS[0]:
+            rec("sketch_idx_masked", "ntcard_tpu_torch/csrc/sketch_idx.cu",
+                "ntcard_tpu/ops/nthash.py:371", err, ms, plain_ms, B * L + 4 * B * L,
+                windows * (OPS_ROLL + OPS_EMIT + OPS_STRIP * len(mask)))
 
     # K2 at r = 16 on K1's k=64 emit stream
     flat16 = idx[16][0].reshape(-1)
@@ -174,7 +242,9 @@ def phase_kernels(dev, seed: int) -> list:
     rec("table_add", "ntcard_tpu_torch/csrc/hist_add.cu",
         "ntcard_tpu/ops/scatter_pallas.py:125", err,
         cuda_ms(lambda: S.table_add_(zeros16, flat16, 2 << 16)),
-        cuda_ms(lambda: S.table_add_plain(zeros16, flat16, 2 << 16)))
+        cuda_ms(lambda: S.table_add_plain(zeros16, flat16, 2 << 16)),
+        table_bytes(flat16, 2 << 16), OPS_SCAN * flat16.numel(),
+        table_add_library_ms(flat16, 2 << 16))
 
     # K3 at r = 27 on K1's k=64 emit stream, at the JAX cap
     sent = 2 << 27
@@ -185,6 +255,12 @@ def phase_kernels(dev, seed: int) -> list:
         raise AssertionError(f"compact: count {int(c)} vs plain {int(pc)} (cap {cap})")
     err = expect_equal("compact", torch.sort(v).values, torch.sort(pv).values)
     print(f"  compact: {int(c)} survivors of {flat27.numel()} at cap {cap}")
+    rec("compact", "ntcard_tpu_torch/csrc/compact.cu",
+        "ntcard_tpu/ops/scatter_pallas.py:306", err,
+        cuda_ms(lambda: S.compact(flat27, sent, cap)),
+        cuda_ms(lambda: S.compact_plain(flat27, sent, cap)),
+        4 * flat27.numel() + 4 * int(c) + 4, OPS_SCAN * flat27.numel(),
+        cuda_ms(lambda: flat27[(flat27 >= 0) & (flat27 < sent)]))
     # forced overflow: counts agree past the cap, and the sketch's gated
     # full-stream add makes the table exact
     over_codes = torch.from_numpy(sampled_repeat_batch(64, stride)).to(dev)
@@ -199,10 +275,7 @@ def phase_kernels(dev, seed: int) -> list:
     if sk.replays != 1:
         raise AssertionError(f"forced overflow: {sk.replays} overflowed updates, expected 1")
     print(f"  forced overflow: count {int(oc)} > cap {cap}, table exact after the gated add")
-    rec("compact", "ntcard_tpu_torch/csrc/compact.cu",
-        "ntcard_tpu/ops/scatter_pallas.py:306", err,
-        cuda_ms(lambda: S.compact(flat27, sent, cap)),
-        cuda_ms(lambda: S.compact_plain(flat27, sent, cap)))
+    del sk, ref
     # K2 gated by a set overflow flag, on the forced-overflow stream
     flag = torch.ones(1, dtype=torch.int32, device=dev)
     table = torch.zeros(sent + 1, dtype=torch.int32, device=dev)
@@ -211,10 +284,13 @@ def phase_kernels(dev, seed: int) -> list:
         S.table_add_(table.clone(), oidx, sent, gate=flag),
         S.table_add_plain(table.clone(), oidx, sent, gate=flag),
     )
-    ms = cuda_ms(lambda: S.table_add_(table, oidx, sent, gate=flag))
-    plain_ms = cuda_ms(lambda: S.table_add_plain(table, oidx, sent, gate=flag))
-    print(f"  table_add gated (flag set, {oidx.numel()} windows): max_abs_err {err}, "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    rec("table_add_gated", "ntcard_tpu_torch/csrc/hist_add.cu",
+        "ntcard_tpu/ops/scatter_pallas.py:125", err,
+        cuda_ms(lambda: S.table_add_(table, oidx, sent, gate=flag)),
+        cuda_ms(lambda: S.table_add_plain(table, oidx, sent, gate=flag)),
+        table_bytes(oidx, sent) + 4, OPS_SCAN * oidx.numel(),
+        table_add_library_ms(oidx, sent))
+    del table
 
     # K4 on an r = 27 table: mostly zero counters, some past the uint16 wrap
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -223,7 +299,10 @@ def phase_kernels(dev, seed: int) -> list:
     vals = torch.randint(1, 1 << 18, rows.shape, generator=gen, device=dev, dtype=torch.int32)
     small = torch.randint(1, 64, rows.shape, generator=gen, device=dev, dtype=torch.int32)
     rows = torch.where(hit, torch.where(vals < (1 << 17), small, vals), rows)
-    for nbins in (65, 1001, 65536):
+    del hit, vals, small
+    lib_ms = cuda_ms(lambda: [torch.bincount(r & 0xFFFF, minlength=65536) for r in rows],
+                     iters=3, warmup=1)
+    for nbins in K4_NBINS:
         err = expect_equal(
             f"counter_hist nbins={nbins}",
             S.counter_hist(rows, nbins),
@@ -231,10 +310,15 @@ def phase_kernels(dev, seed: int) -> list:
         )
         ms = cuda_ms(lambda: S.counter_hist(rows, nbins))
         plain_ms = cuda_ms(lambda: S.counter_hist_plain(rows, nbins), iters=3, warmup=1)
-        print(f"  counter_hist nbins={nbins}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        nbytes = 4 * rows.numel() + 4 * rows.shape[0] * nbins
+        bound = bound_ms(nbytes, OPS_SCAN * rows.numel())[0]
+        print(f"  counter_hist nbins={nbins}: bit-exact; kernel {ms:.4f} ms "
+              f"({100 * bound / ms:.1f}% of its bound), plain {plain_ms:.4f} ms")
         if nbins == 1001:  # -c1000, the default
             rec("counter_hist", "ntcard_tpu_torch/csrc/counter_hist.cu",
-                "ntcard_tpu/ops/scatter_pallas.py:306", err, ms, plain_ms)
+                "ntcard_tpu/ops/scatter_pallas.py:306", err, ms, plain_ms,
+                nbytes, OPS_SCAN * rows.numel(), lib_ms)
+    del rows
 
     # K5 at k = 64 on the same batch: from zeros, then from a nonzero base
     hstride = aligned_stride(L, 64)
@@ -255,7 +339,9 @@ def phase_kernels(dev, seed: int) -> list:
         print(f"  hll_update k64 b{n_bits}: bit-exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         if n_bits == 16:  # nthll's default register width
             rec("hll_update", "ntcard_tpu_torch/csrc/hll_update.cu",
-                "ntcard_tpu/models/hll.py:27", err, ms, plain_ms)
+                "ntcard_tpu/models/hll.py:27", err, ms, plain_ms,
+                B * L + 2 * 4 * zeros.numel(), B * hstride * (OPS_ROLL + OPS_HLL_EMIT))
+    torch.cuda.empty_cache()
     return recs
 
 
@@ -388,36 +474,72 @@ PATH_KERNELS = {
     "gap": ("sketch_idx", "compact", "table_add", "counter_hist"),
     "nthll": ("hll_update",),
 }
+# the runs whose launches each kernel record counts: K1 unmasked and
+# masked, K2 ungated (r16) and gated (r > 16)
+RECORD_RUNS = {
+    "sketch_idx": ("r27", "r16"), "sketch_idx_masked": ("gap",),
+    "table_add": ("r16",), "table_add_gated": ("r27", "gap"),
+    "compact": ("r27", "gap"), "counter_hist": ("r27", "r16", "gap"),
+    "hll_update": ("nthll",),
+}
+
+
+def host_batches(fq: Path, kmax: int, n_threads: int, **kw):
+    """The raw [B, L] code batches of ``fq`` at the default geometry, decoded
+    on background threads, as the host engine consumes them."""
+    from ntcard_tpu_torch.pipeline import default_geometry, parallel_batches_from_files, prefetch
+
+    chunk_len, batch_rows = default_geometry(kmax)
+    return prefetch(parallel_batches_from_files(
+        [str(fq)], chunk_len, batch_rows, kmax, n_threads, **kw))
+
+
+def host_ntcard(flags, prefix: Path, fq: Path) -> None:
+    """The reference .hist files of one ntcard run: the port's parser, batch
+    stream, native host engine and writers, with no device."""
+    from ntcard_tpu_torch.cli import estimate_and_write, gap_positions, parse_args
+    from ntcard_tpu_torch.io.packing import aligned_stride
+    from ntcard_tpu_torch.models.host_engine import HostCountTableSketch
+    from ntcard_tpu_torch.pipeline import default_geometry
+    from ntcard_tpu_torch.utils.metrics import Metrics
+
+    opt, _ = parse_args([*flags, "-p", str(prefix), str(fq)])
+    opt.s_bits = 7  # the <50 GB rule the port CLI applied
+    kmax = max(opt.k_list)
+    stride = aligned_stride(default_geometry(kmax)[0], kmax)
+    sketch = HostCountTableSketch(opt.k_list, opt.s_bits, opt.r_bits, stride,
+                                  gap_positions=gap_positions(opt))
+    stats: dict = {}
+    for batch in host_batches(fq, kmax, 1, stats_out=stats):
+        sketch.update(batch)
+    with contextlib.redirect_stderr(io.StringIO()):
+        estimate_and_write(opt, sketch.finalize(cov_max=opt.cov_max), Metrics(False), stats,
+                           sketch, time.monotonic())
 
 
 def host_hll_registers(fq: Path) -> np.ndarray:
-    """nthll's registers of ``fq`` by the native host engine, over the batch
-    stream of ntcard_tpu.cli_hll._main_host."""
-    from ntcard_tpu.io.packing import aligned_stride
-    from ntcard_tpu.models.host_engine import HostHllSketch
-    from ntcard_tpu.pipeline import default_geometry, parallel_batches_from_files, prefetch
+    """nthll's registers of ``fq`` by the port's native host engine, over the
+    batch stream nthll reads (lenient sniffing, unreadable files skipped)."""
+    from ntcard_tpu_torch.io.packing import aligned_stride
+    from ntcard_tpu_torch.models.host_engine import HostHllSketch
+    from ntcard_tpu_torch.pipeline import default_geometry
 
-    chunk_len, batch_rows = default_geometry(HLL_K)
-    sketch = HostHllSketch(HLL_K, HLL_BITS, aligned_stride(chunk_len, HLL_K))
-    for batch in prefetch(parallel_batches_from_files(
-            [str(fq)], chunk_len, batch_rows, HLL_K, 1, lenient=True, on_error="skip")):
+    sketch = HostHllSketch(HLL_K, HLL_BITS, aligned_stride(default_geometry(HLL_K)[0], HLL_K))
+    for batch in host_batches(fq, HLL_K, 1, lenient=True, on_error="skip"):
         sketch.update(batch)
     return sketch.registers()
 
 
 def phase_full(fq: Path, tmp: Path, dev) -> dict:
+    """The four full-size runs; returns the launches of each kernel in each."""
     import torch
 
-    from ntcard_tpu import cli_hll as host_hll
-    from ntcard_tpu.cli import _main_host, parse_args
-    from ntcard_tpu.models.host_engine import host_engine_available
     from ntcard_tpu_torch.cli_hll import device_registers
+    from ntcard_tpu_torch.models.estimate import estimate_f0
     from ntcard_tpu_torch.ops import scatter as S
     from ntcard_tpu_torch.ops.hll import hll_update_
     from ntcard_tpu_torch.ops.sketch_idx import sketch_idx
 
-    if not host_engine_available():
-        raise AssertionError("the native host engine (the full-size reference) is unavailable")
     wrappers = {
         "sketch_idx": sketch_idx, "table_add": S.table_add_, "compact": S.compact,
         "counter_hist": S.counter_hist, "hll_update": hll_update_,
@@ -460,12 +582,7 @@ def phase_full(fq: Path, tmp: Path, dev) -> dict:
               "added the full stream")
     print(f"  table_add (r16): {per_run['r16']['table_add']} ungated adds")
     for tag, flags, ks in ntcard_runs:
-        opt, files = parse_args([*flags, "-t", str(os.cpu_count() or 1), "-p",
-                                 str(tmp / f"host_{tag}"), str(fq)])
-        opt.s_bits = 7  # the <50 GB rule the port CLI applied
-        with contextlib.redirect_stderr(io.StringIO()):
-            if _main_host(opt, files, time.monotonic()) != 0:
-                raise AssertionError(f"host engine run {tag} failed")
+        host_ntcard(flags, tmp / f"host_{tag}", fq)
         for k in ks:
             gpu = (tmp / f"gpu_{tag}_k{k}.hist").read_bytes()
             if gpu != (tmp / f"host_{tag}_k{k}.hist").read_bytes():
@@ -476,14 +593,12 @@ def phase_full(fq: Path, tmp: Path, dev) -> dict:
     if not np.array_equal(got, want):
         raise AssertionError(f"nthll registers differ from the host engine's in "
                              f"{int((got != want).sum())} of {want.size}")
-    host_out = io.StringIO()
-    with contextlib.redirect_stdout(host_out):
-        host_hll._main_host([str(fq)], HLL_K, HLL_BITS)
-    if f0_line != host_out.getvalue():
-        raise AssertionError(f"nthll F0 line {f0_line!r} vs host engine {host_out.getvalue()!r}")
+    host_line = f"F0, Exp# of distnt kmers(k={HLL_K}): {estimate_f0(want, canon=True)}\n"
+    if f0_line != host_line:
+        raise AssertionError(f"nthll F0 line {f0_line!r} vs host engine {host_line!r}")
     print(f"  nthll registers equal to the host engine's ({want.size}, max {int(want.max())}); "
           f"{f0_line.strip()}")
-    return {name: sum(c[name] for c in per_run.values()) for name in wrappers}
+    return per_run
 
 
 def device_busy_s(prof) -> float:
@@ -508,10 +623,9 @@ def phase_breakdown(fq: Path, tmp: Path, dev) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from ntcard_tpu.cli import parse_args
-    from ntcard_tpu.io.packing import wire_mode_of
-    from ntcard_tpu.io.readers import expand_file_args
-    from ntcard_tpu_torch.cli import wire_batches
+    from ntcard_tpu_torch.cli import parse_args, wire_batches
+    from ntcard_tpu_torch.io.packing import wire_mode_of
+    from ntcard_tpu_torch.io.readers import expand_file_args
     from ntcard_tpu_torch.models.sketch import CountTableSketch
     from ntcard_tpu_torch.ops.nthash import codes_T
 
@@ -566,24 +680,33 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from ntcard_tpu import native
-    from ntcard_tpu_torch import _build
+    from ntcard_tpu_torch import _build, native
 
+    global INT32_PER_S
     dev = torch.device("cuda")
     print("phase 1: build")
     t0 = time.monotonic()
-    _build.build_all()
+    libs = _build.build_all()
     print(f"  kernels built in {time.monotonic() - t0:.1f} s")
+    for name in sorted(libs):
+        print(f"  ptxas, {name}.cu: " + "; ".join(_build.ptxas_report(name).splitlines()))
     t0 = time.monotonic()
-    if native.get_lib() is None:
-        raise AssertionError("the native decode + pack library did not build")
+    native.get_lib()  # raises if g++ did not build it
     print(f"  native decode + pack library ready in {time.monotonic() - t0:.1f} s "
-          "(g++ builds it once per cache directory)")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
+          "(g++ builds it once per checkout, into ntcard_tpu_torch/_kernels_build/native)")
+
+    def smi(query):
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip().splitlines()[0]
+
+    print(smi("name,power.limit"))
+    clock_mhz = float(smi("clocks.max.sm").split()[0])
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    INT32_PER_S = n_sm * 64 * clock_mhz * 1e6
+    print(f"  INT32 peak {INT32_PER_S / 1e12:.3f} T/s ({n_sm} SMs x 64 lanes x {clock_mhz:.0f} "
+          f"MHz), memory peak {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
 
     print("phase 2: kernels vs plain versions at the main path's shapes")
     kernels = phase_kernels(dev, args.seed)
@@ -596,13 +719,18 @@ def main() -> int:
         t0 = time.monotonic()
         write_fastq(fq, args.seed)
         print(f"  wrote {fq.stat().st_size} bytes of FASTQ in {time.monotonic() - t0:.1f} s")
-        counts = phase_full(fq, tmp, dev)
+        per_run = phase_full(fq, tmp, dev)
         print("phase 5: where the time goes in the full-size runs")
         phase_breakdown(fq, tmp, dev)
-    for k in kernels:
-        k["launches"] = counts[k["name"]]
+    for k in kernels:  # each record's launches in the main-path runs that make them
+        wrapper = k["name"].removesuffix("_masked").removesuffix("_gated")
+        k["launches"] = sum(per_run[tag][wrapper] for tag in RECORD_RUNS[k["name"]])
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
+    loaded = [m for m, mod in sys.modules.items()
+              if mod is not None and (m == "ntcard_tpu" or m.startswith("ntcard_tpu."))]
+    if loaded:
+        raise AssertionError(f"the port loaded the JAX package's modules {loaded}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,7 @@ _OUT = _PKG / "_kernels_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LOCK = threading.Lock()
@@ -81,10 +81,21 @@ def build_all() -> Dict[str, Path]:
                 errors.append(f"nvcc failed for {name}.cu:\n{log.decode(errors='replace')}")
                 tmp.unlink(missing_ok=True)
             else:
+                # ptxas' registers, shared memory and spills of each kernel
+                so.with_suffix(".log").write_bytes(log)
                 os.replace(tmp, so)  # atomic: concurrent builds race benignly
         if errors:
             raise RuntimeError("\n".join(errors))
     return {n: sp[1] for n, sp in want.items()}
+
+
+def ptxas_report(name: str) -> str:
+    """What ptxas said of ``csrc/<name>.cu`` when it was built: each
+    kernel's registers, shared memory and spill bytes."""
+    log = _OUT / _digest() / f"lib{name}.log"
+    lines = log.read_text(errors="replace").splitlines() if log.exists() else []
+    keep = ("registers", "spill", "smem")
+    return "\n".join(line.split(": ")[-1].strip() for line in lines if any(w in line for w in keep))
 
 
 def lib(name: str) -> ctypes.CDLL:

@@ -1,13 +1,12 @@
 """nthll command line on one CUDA device (the port of ntcard_tpu.cli_hll's
 single-device path).
 
-Same flags, messages and output as ``ntcard_tpu.cli_hll``, whose usage and
-version texts and getopt spec it reuses by import; the flag loop is written
-again here because ``ntcard_tpu.cli_hll.main`` probes the JAX warm-pool
-daemon and imports jax. It always runs the device path: the JAX package's
-engine routing rests on TPU measurements and is not ported. It uses the one
-device it is given. Multi-host runs and NTCARD_ENGINE=hybrid are refused
-with a "not ported yet" message and exit status 1.
+Same flags, messages and output as ``ntcard_tpu.cli_hll``; the getopt spec
+and the usage and version texts are the port's copies of
+ntcard_tpu/cli_hll.py:12-44. It always runs the device path: the JAX
+package's engine routing rests on TPU measurements and is not ported. It
+uses the one device it is given. Multi-host runs and NTCARD_ENGINE=hybrid are
+refused with a "not ported yet" message and exit status 1.
 
 Run: ``python -m ntcard_tpu_torch.cli_hll -k25 reads.fq``
 """
@@ -18,7 +17,35 @@ import getopt
 import sys
 from typing import List, Optional
 
-from ntcard_tpu.cli_hll import GETOPT_SPEC, PROGRAM, USAGE_MESSAGE, VERSION_MESSAGE
+PROGRAM = "nthll"
+
+# -h/-c/--hash are accepted-and-ignored, matching the reference binary
+GETOPT_SPEC = (
+    "t:k:b:s:hc",
+    ["threads=", "kmer=", "bit=", "sit=", "hash=", "help", "version"],
+)
+
+VERSION_MESSAGE = (
+    "nthll-TPU 1.0.0 (capability parity with nthll 1.2.2)\n"
+    "A TPU-native HyperLogLog distinct k-mer estimator.\n"
+)
+
+USAGE_MESSAGE = f"""Usage: {PROGRAM} [OPTION]... FILE(S)...
+Estimates distinct number of k-mers in FILE(S).
+
+Acceptable file formats: fastq, fasta, sam, bam and in compressed formats gz, bz, zip, xz.
+Accepts a list of files by adding @ at the beginning of the list name.
+
+ Options:
+
+  -t, --threads=N\tuse N parallel threads [1] (N>=2 should be used when input files are >=2)
+  -k, --kmer=N\tthe length of kmer [64]
+      --help\tdisplay this help and exit
+      --version\toutput version information and exit
+
+Report bugs to https://github.com/bcgsc/ntCard/issues
+"""
+
 from ntcard_tpu_torch.cli import unported_env
 
 
@@ -26,16 +53,18 @@ def device_registers(in_files, km_len: int, n_bits: int, n_thrd: int, dev):
     """The uint8 HLL registers of ``in_files`` at k = ``km_len``, counted on
     ``dev``. nthll skips unreadable files and sniffs formats leniently
     (nthll.cpp:70-90, 225-235); -t fans decode threads over files."""
-    from ntcard_tpu.cli import _select_wire
-    from ntcard_tpu.io.packing import aligned_stride, wire_mode_of
-    from ntcard_tpu.pipeline import default_geometry, parallel_batches_from_files
+    from ntcard_tpu_torch.cli import select_wire
+    from ntcard_tpu_torch.io.packing import aligned_stride, wire_mode_of
     from ntcard_tpu_torch.models.hll import HllSketch
-    from ntcard_tpu_torch.pipeline import device_feed
+    from ntcard_tpu_torch.pipeline import (
+        default_geometry,
+        device_feed,
+        parallel_batches_from_files,
+    )
 
     chunk_len, batch_rows = default_geometry(km_len)
     stride = aligned_stride(chunk_len, km_len)
-    # superbatch stacks (the last value) are a TPU dispatch workaround: unused
-    wire_fmt, use_quad, halo, _ = _select_wire(batch_rows, chunk_len, stride)
+    wire_fmt, use_quad, halo = select_wire(batch_rows, chunk_len, stride)
     sketch = HllSketch(km_len, n_bits, stride, device=dev)
     batches = parallel_batches_from_files(
         in_files, chunk_len, batch_rows, km_len, n_thrd,
@@ -89,9 +118,9 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     if why:
         raise SystemExit(f"{PROGRAM}: {why} is not ported yet to ntcard_tpu_torch")
 
-    from ntcard_tpu.io.readers import expand_file_args
-    from ntcard_tpu.models.estimate import estimate_f0
     from ntcard_tpu_torch.device import resolve_device
+    from ntcard_tpu_torch.io.readers import expand_file_args
+    from ntcard_tpu_torch.models.estimate import estimate_f0
 
     dev = resolve_device(device)
     regs = device_registers(expand_file_args(args), km_len, n_bits, n_thrd, dev)

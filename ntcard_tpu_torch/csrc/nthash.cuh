@@ -1,6 +1,8 @@
-// The rolling canonical ntHash on the device, shared by K1 (sketch_idx.cu)
-// and K5 (hll_update.cu). P = srol rotates a 33-bit ring in bits 0..32 and
-// a 31-bit ring in bits 33..63 left by one (nthash.hpp:185-217).
+// The rolling canonical ntHash on the device. P = srol rotates a 33-bit
+// ring in bits 0..32 and a 31-bit ring in bits 33..63 left by one
+// (nthash.hpp:185-217). K1 (sketch_idx.cu) takes the split rotations and
+// builds its own table-driven roll; K5 (hll_update.cu) also takes the code
+// select and the one-base step below.
 #pragma once
 
 #include <cstdint>

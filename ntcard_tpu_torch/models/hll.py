@@ -19,7 +19,7 @@ from ntcard_tpu_torch.ops.nthash import codes_T
 class HllSketch:
     """Streaming nthll sketch: :meth:`update` with wire or code batches,
     :meth:`registers` for the uint8 registers that
-    ntcard_tpu.models.estimate.estimate_f0 reads."""
+    models.estimate.estimate_f0 reads."""
 
     def __init__(self, k: int, n_bits: int, stride: int, device="cpu"):
         if stride % 8 or stride < 8:

@@ -44,8 +44,7 @@ class CountTableSketch:
     """Streaming ntcard sketch on one device: :meth:`update` with wire or
     code batches, :meth:`finalize` for the counter-value histograms and the
     exact F1 counts. ``gap_positions`` (spaced seeds, a single k) are the
-    masked positions of the seed, as ntcard_tpu.cli._gap_positions makes
-    them."""
+    masked positions of the seed, as cli.gap_positions makes them."""
 
     def __init__(
         self,

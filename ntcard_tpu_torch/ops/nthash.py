@@ -21,7 +21,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-from ntcard_tpu import constants as C
+from ntcard_tpu_torch import constants as C
 from ntcard_tpu_torch.ops import u64
 from ntcard_tpu_torch.ops.rotations import comp_seed_table, seed_table, srol_n, strip_tables
 
@@ -30,7 +30,7 @@ _I64_MAX = (1 << 63) - 1
 
 
 def unpack_rows(codes: torch.Tensor) -> torch.Tensor:
-    """Inverse of io.packing.pack_rows: [B/2, L] uint8 nibble wire -> [L, B]
+    """Inverse of the nibble wire (io/packing.py): [B/2, L] uint8 -> [L, B]
     code stream (hi nibble = chunk row b, lo nibble = row b + B/2)."""
     p = codes.T
     return torch.cat([p >> 4, p & 0x0F], dim=1)
@@ -62,7 +62,7 @@ def _unpack_2bit(p: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_quad(wire: torch.Tensor) -> torch.Tensor:
-    """Inverse of io.packing.pack_rows_quad: [B/4 + B/64, L] uint8 quad wire
+    """Inverse of the quad wire (io/packing.py): [B/4 + B/64, L] uint8 quad wire
     -> [L, B] code stream (2-bit codes, N restored from the uint16 delta
     sidecar)."""
     R, L = wire.shape
@@ -81,7 +81,7 @@ def unpack_quad(wire: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_quad2(wire: torch.Tensor, halo: int) -> torch.Tensor:
-    """Inverse of io.packing.pack_rows_quad2: [B/4 + B/128 + 1, S] uint8
+    """Inverse of the quad2 wire (io/packing.py): [B/4 + B/128 + 1, S] uint8
     quad2 wire -> [S + halo, B] code stream (owned spans, N marks from the
     uint8 sidecar, the all-N fill tail, and each chunk's halo rebuilt from
     the next chunk's head; only the last chunk's halo travels)."""

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ntcard_tpu import constants as C
+from ntcard_tpu_torch import constants as C
 from ntcard_tpu_torch.ops.u64 import as_i64, lsr
 
 _M33 = (1 << 33) - 1

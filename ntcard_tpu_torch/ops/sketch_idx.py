@@ -101,13 +101,13 @@ def sketch_idx(
     mpos, mf, mr = (t.data_ptr() for t in strips) if strips else (None, None, None)
     P, I, LL = _build.P, _build.I, _build.LL
     fn = _build.fn(
-        "sketch_idx", "ntc_sketch_idx", [P, LL, LL, I, I, P, I, P, P, P, P, I, I, I, I, P, P]
+        "sketch_idx", "ntc_sketch_idx", [P, LL, LL, I, I, P, I, I, P, P, P, P, I, I, I, I, P, P]
     )
     with torch.cuda.device(dev):
         rc = fn(
             codes.data_ptr(), codes.stride(0), codes.stride(1), B, L,
-            ks_t.data_ptr(), len(ks), device_seeds(dev).data_ptr(), mpos, mf, mr, len(mask),
-            stride, s_bits, r_bits, out.data_ptr(), _build.stream_ptr(codes),
+            ks_t.data_ptr(), len(ks), max(ks), device_seeds(dev).data_ptr(), mpos, mf, mr,
+            len(mask), stride, s_bits, r_bits, out.data_ptr(), _build.stream_ptr(codes),
         )
         sketch_idx.launches += 1
     _build.check(rc, "sketch_idx")

@@ -5,9 +5,9 @@
 
 Sketches saved by either package load (they share the .npz format). The
 tables are summed on the device (``CountTableSketch.merge_``) and the
-finalize histogram runs in K4; the estimator and the writers are
-ntcard_tpu's. Summing commutes, so the merge of partial sketches equals one
-combined run bit for bit.
+finalize histogram runs in K4; the estimator and the writers are the
+port's copies of ntcard_tpu's. Summing commutes, so the merge of partial
+sketches equals one combined run bit for bit.
 """
 
 from __future__ import annotations
@@ -38,10 +38,10 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         sys.stderr.write("usage: merge_sketches -p PREFIX|-o FILE [-c COV] SKETCH.npz...\n")
         return 1
 
-    from ntcard_tpu.models.estimate import comp_est_hist
-    from ntcard_tpu.output import write_compact, write_default
     from ntcard_tpu_torch.device import resolve_device
+    from ntcard_tpu_torch.models.estimate import comp_est_hist
     from ntcard_tpu_torch.models.sketch import CountTableSketch
+    from ntcard_tpu_torch.output import write_compact, write_default
 
     dev = resolve_device(device)
     merged = CountTableSketch.load(args[0], device=dev)

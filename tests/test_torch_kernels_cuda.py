@@ -8,7 +8,8 @@ JAX-importing conftest:
 
     python -m pytest --noconftest -rs tests/test_torch_kernels_cuda.py
 
-Imports nothing of JAX. Tolerance 0: every output is an integer.
+Imports nothing of JAX and nothing of ntcard_tpu. Tolerance 0: every
+output is an integer.
 """
 
 import numpy as np
@@ -17,7 +18,7 @@ import torch
 
 torch.set_num_threads(2)  # tier-1 runs six xdist workers
 
-from ntcard_tpu.io.packing import aligned_stride, pack_records  # noqa: E402
+from ntcard_tpu_torch.io.packing import aligned_stride, pack_records  # noqa: E402
 from ntcard_tpu_torch.models.hll import HllSketch  # noqa: E402
 from ntcard_tpu_torch.models.sketch import CountTableSketch  # noqa: E402
 from ntcard_tpu_torch.ops import scatter as S  # noqa: E402
@@ -56,6 +57,40 @@ def test_sketch_idx(dev, ks, r_bits):
     _eq(sketch_idx(codes, ks, stride, 7, r_bits), want)
     # the main path's position-major stream, passed as its transposed view
     _eq(sketch_idx(codes.T.contiguous().T, ks, stride, 7, r_bits), want)
+
+
+@pytest.mark.parametrize(
+    "B,L,ks,stride",
+    [
+        (70, 301, (64, 96), 301 - 95),  # L not a multiple of 4, 32 or the 256 tile
+        (33, 300, (1,), 300),  # k = 1, every start owned
+        (64, 1000, (12, 33, 128), 1000 - 127),  # stride + kmax - 1 = L
+        (40, 520, (9, 100), 300),  # a short k beside one past three sub-blocks
+        (40, 520, (221,), 300),  # k = L - stride + 1, remainder 29 past 6 sub-blocks
+        (257, 1024, (64, 96, 128), 896),  # the main path's geometry, a partial row block
+    ],
+)
+def test_sketch_idx_edges(dev, B, L, ks, stride):
+    codes = _codes(L + B, B, L).to(dev)
+    for r_bits in (27, 16):
+        want = sketch_idx_plain(codes, ks, stride, 7, r_bits)
+        _eq(sketch_idx(codes, ks, stride, 7, r_bits), want)
+        _eq(sketch_idx(codes.T.contiguous().T, ks, stride, 7, r_bits), want)
+        # a strided view with neither stride 1
+        wide = torch.zeros((B, 2 * L), dtype=torch.uint8, device=dev)
+        wide[:, ::2] = codes
+        _eq(sketch_idx(wide[:, ::2], ks, stride, 7, r_bits), want)
+
+
+def test_sketch_idx_codes_above_n(dev):
+    """Codes above 4 hash as N (seed 0) but do not invalidate a window, as
+    the plain version's lookup has it."""
+    B, L, ks = 64, 400, (20, 64)
+    codes = _codes(7, B, L)
+    codes[torch.rand(B, L, generator=torch.Generator().manual_seed(0)) < 0.02] = 7
+    codes = codes.to(dev)
+    want = sketch_idx_plain(codes, ks, 320, 3, 16)
+    _eq(sketch_idx(codes, ks, 320, 3, 16), want)
 
 
 @pytest.mark.parametrize(
@@ -139,6 +174,20 @@ def test_counter_hist(dev, nbins):
     rows[:, 1::7] = 65536 * 2
     t = torch.from_numpy(rows).to(dev)
     _eq(S.counter_hist(t, nbins), S.counter_hist_plain(t, nbins))
+
+
+@pytest.mark.parametrize("nbins", [1, 65, 1001, 58112, 65536])
+@pytest.mark.parametrize("row_len,offset", [(200_003, 0), (200_000, 1), (7, 3), (1, 0)])
+def test_counter_hist_unaligned(dev, nbins, row_len, offset):
+    """A row length that is not a multiple of 4, and rows whose start is not
+    16-byte aligned (a contiguous view at an offset of 1 or 3 elements)."""
+    rng = np.random.default_rng(row_len + offset)
+    flat = rng.integers(0, 1 << 17, 3 * row_len + offset).astype(np.int32)
+    flat[::5] = 0
+    base = torch.from_numpy(flat).to(dev)
+    rows = base[offset:offset + 3 * row_len].view(3, row_len)
+    assert rows.is_contiguous()
+    _eq(S.counter_hist(rows, nbins), S.counter_hist_plain(rows, nbins))
 
 
 def test_overflow_add(dev):
