@@ -11,12 +11,17 @@ prints no result):
    decode + pack library with g++;
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, bit for bit (integer outputs, tolerance 0), and time
-   both with CUDA events, beside the one PyTorch call that comes nearest to
+   both by their device time (torch.profiler, every device-side event a call
+   launches), beside the one PyTorch call that comes nearest to
    the kernel's function where there is one (the port never calls it) and
    beside the kernel's bound: the larger of the bytes it must move over
    3.35 TB/s and the int32 operations these inputs need over the card's
    INT32 peak (SMs x 64 lanes x the maximum SM clock). K1 also with
-   spaced-seed masks, K4 at five nbins, K5 at two register widths;
+   spaced-seed masks; K2 also over K3's cap buffer and gated with the flag
+   set and unset; K3 also at the edges of its contract (unaligned starts
+   and lengths, no survivor, cap, cap + 1, all survivors); K4 at five
+   nbins; K5 at k 25, 33 and 64 and two register widths, from zeros, a
+   random base and a high floor;
 3. run the port CLIs on the card over the reference goldens in
    tests/golden: ntcard (with -g2), nthll, and the offline merge of two
    sketches the port saved;
@@ -77,7 +82,9 @@ OPS_SCAN = 3  # a table-update or histogram pass: range test, test, add
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of fn() in ms, by CUDA events around ``iters`` calls."""
+    """Mean time of fn() in ms, by CUDA events around ``iters`` back-to-back
+    calls: the device's time, or the host's launch overhead where that is
+    longer (phase 5's step times)."""
     import torch
 
     for _ in range(warmup):
@@ -93,12 +100,52 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profiled(fn, min_events: int):
+    """(fn()'s result, device seconds: the sum of every device-side event
+    of the run, which run one at a time on the one stream) by
+    torch.profiler. A trace with fewer than ``min_events`` device events has
+    lost some (seen on the card: one kernel of ten calls, or none), so it is
+    taken again, at most three times in all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        n, total_us = 0, 0.0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                t = getattr(e, "self_device_time_total", None)
+                total_us += e.self_cuda_time_total if t is None else t
+                n += 1
+        if n >= min_events:
+            return out, total_us / 1e6
+    raise AssertionError(f"torch.profiler kept {n} device events, fewer than {min_events}")
+
+
+def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of fn() in ms: the device-side events (kernels,
+    fills, copies) that ``iters`` calls launch, each at least one. Unlike
+    CUDA events around back-to-back calls, it does not count the host's
+    per-call overhead, which exceeds a short kernel's run."""
+    for _ in range(warmup):
+        fn()
+    return profiled(lambda: [fn() for _ in range(iters)], iters)[1] * 1e3 / iters
+
+
 def max_abs_err(a, b) -> int:
     import torch
 
     if a.shape != b.shape:
         raise AssertionError(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
+
+
+def sig(x: float) -> float:
+    """x to six significant digits (a bound of a few bytes stays nonzero)."""
+    return float(f"{x:.6g}")
 
 
 def expect_equal(name: str, a, b) -> int:
@@ -159,13 +206,64 @@ def table_add_library_ms(flat, sent: int) -> float:
     idx, ones = flat.long(), torch.ones_like(flat)
     table = torch.zeros(sent + 2, dtype=torch.int32, device=flat.device)
     times = {
-        "index_put_ accumulate": cuda_ms(
+        "index_put_ accumulate": device_ms(
             lambda: table.index_put_((idx,), ones, accumulate=True), iters=3, warmup=1),
-        "index_add_": cuda_ms(lambda: table.index_add_(0, idx, ones)),
-        "bincount": cuda_ms(lambda: torch.bincount(flat, minlength=sent + 2)),
+        "index_add_": device_ms(lambda: table.index_add_(0, idx, ones)),
+        "bincount": device_ms(lambda: torch.bincount(flat, minlength=sent + 2)),
     }
     print("  library calls for K2: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
     return min(times.values())
+
+
+def compact_edges(dev, sent: int, cap: int) -> None:
+    """K3 against its plain version at the edges of its contract, each case
+    launched twice (the kernel's scratch counter must be back at 0): lengths
+    that are not a multiple of 4, starts 4 and 12 bytes past a 16-byte
+    boundary, no survivor, exactly cap, cap + 1, and all survivors (cap of
+    them, and a whole batch). The survivors are distinct, so an overflowed
+    buffer must hold cap distinct survivors and no -1."""
+    import torch
+
+    from ntcard_tpu_torch.ops import scatter as S
+
+    rng = np.random.default_rng(11)
+    n = B * L
+
+    def stream(n_surv: int, length: int = n):
+        x = np.full(length, sent, np.int32)  # S0: valid, not sampled
+        x[rng.random(length) < 0.05] = sent + 1  # S1
+        x[rng.choice(length, n_surv, replace=False)] = rng.choice(sent, n_surv, replace=False)
+        return torch.from_numpy(x).to(dev)
+
+    main = stream(n // 100)  # about the sampled share of the main path
+    every = torch.arange(n, dtype=torch.int32, device=dev)
+    cases = {
+        "length 4m + 1": main[: n - 3],
+        "start 4 bytes past a 16-byte boundary": main[1:],
+        "start 12 bytes past, length 4m + 2": main[3: n - 1],
+        "three elements at an offset": main[1:4],
+        "empty": main[:0],
+        "no survivor": stream(0),
+        "exactly cap": stream(cap),
+        "cap + 1": stream(cap + 1),
+        "all survivors, cap of them": every[:cap],
+        "all survivors, a whole batch": every,
+    }
+    for name, x in cases.items():
+        pv, pc = S.compact_plain(x, sent, cap)
+        for _ in range(2):
+            v, c = S.compact(x, sent, cap)
+            if int(c) != int(pc):
+                raise AssertionError(f"compact ({name}): count {int(c)} vs plain {int(pc)}")
+            if int(c) <= cap:
+                expect_equal(f"compact ({name})", torch.sort(v).values, torch.sort(pv).values)
+            else:
+                kept = x[(x >= 0) & (x < sent)]
+                if not (bool(torch.isin(v, kept).all()) and torch.unique(v).numel() == cap):
+                    raise AssertionError(f"compact ({name}): the overflowed buffer is not "
+                                         f"{cap} distinct survivors")
+    print(f"  compact edges bit-exact (or cap distinct survivors past the cap), each twice: "
+          f"{', '.join(cases)}")
 
 
 def phase_kernels(dev, seed: int) -> list:
@@ -188,13 +286,13 @@ def phase_kernels(dev, seed: int) -> list:
         bound, by = bound_ms(nbytes, ops)
         recs.append(
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-             "launches": 0, "max_abs_err": err, "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
-             "bound_ms": round(bound, 4), "bound_by": by, "share_of_bound": round(bound / ms, 4),
-             "library_ms": None if library_ms is None else round(library_ms, 4)}
+             "launches": 0, "max_abs_err": err, "ms": sig(ms), "plain_ms": sig(plain_ms),
+             "bound_ms": sig(bound), "bound_by": by, "share_of_bound": sig(bound / ms),
+             "library_ms": None if library_ms is None else sig(library_ms)}
         )
         lib = "no single call" if library_ms is None else f"{library_ms:.4f} ms"
         print(f"  {name}: max_abs_err {err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {lib}, bound {bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of it")
+              f"library {lib}, bound {bound:.6g} ms ({by}), {100 * bound / ms:.2f}% of it")
 
     def table_bytes(flat, sent):
         """The emit stream read once, and each table entry it adds to read
@@ -213,8 +311,8 @@ def phase_kernels(dev, seed: int) -> list:
     windows = B * stride  # owned window starts a k; the rest of a row is S1
     rec("sketch_idx", "ntcard_tpu_torch/csrc/sketch_idx.cu",
         "ntcard_tpu/ops/nthash_pallas.py:215", err,
-        cuda_ms(lambda: sketch_idx(codes, KS, stride, S_BITS, 27)),
-        cuda_ms(lambda: sketch_idx_plain(codes, KS, stride, S_BITS, 27), iters=3, warmup=1),
+        device_ms(lambda: sketch_idx(codes, KS, stride, S_BITS, 27)),
+        device_ms(lambda: sketch_idx_plain(codes, KS, stride, S_BITS, 27), iters=3, warmup=1),
         B * L + 4 * len(KS) * B * L, len(KS) * windows * (OPS_ROLL + OPS_EMIT))
     # K1 with spaced seeds (a single k): the -g2 seed of k64, the main
     # path's gap run, and a 12-gap
@@ -223,10 +321,10 @@ def phase_kernels(dev, seed: int) -> list:
             err = expect_equal(f"sketch_idx k64 mask {mask} r{r}",
                                sketch_idx(codes, (64,), stride, S_BITS, r, mask),
                                sketch_idx_plain(codes, (64,), stride, S_BITS, r, mask))
-        ms = cuda_ms(lambda: sketch_idx(codes, (64,), stride, S_BITS, 27, mask))
-        plain_ms = cuda_ms(lambda: sketch_idx_plain(codes, (64,), stride, S_BITS, 27, mask),
+        ms = device_ms(lambda: sketch_idx(codes, (64,), stride, S_BITS, 27, mask))
+        plain_ms = device_ms(lambda: sketch_idx_plain(codes, (64,), stride, S_BITS, 27, mask),
                            iters=3, warmup=1)
-        unmasked_ms = cuda_ms(lambda: sketch_idx(codes, (64,), stride, S_BITS, 27))
+        unmasked_ms = device_ms(lambda: sketch_idx(codes, (64,), stride, S_BITS, 27))
         print(f"  sketch_idx k64 mask of {len(mask)} at r27 and r16: bit-exact; r27 kernel "
               f"{ms:.4f} ms (unmasked k64 {unmasked_ms:.4f} ms), plain {plain_ms:.4f} ms")
         if mask == GAP_MASKS[0]:
@@ -241,8 +339,8 @@ def phase_kernels(dev, seed: int) -> list:
                        S.table_add_plain(zeros16.clone(), flat16, 2 << 16))
     rec("table_add", "ntcard_tpu_torch/csrc/hist_add.cu",
         "ntcard_tpu/ops/scatter_pallas.py:125", err,
-        cuda_ms(lambda: S.table_add_(zeros16, flat16, 2 << 16)),
-        cuda_ms(lambda: S.table_add_plain(zeros16, flat16, 2 << 16)),
+        device_ms(lambda: S.table_add_(zeros16, flat16, 2 << 16)),
+        device_ms(lambda: S.table_add_plain(zeros16, flat16, 2 << 16)),
         table_bytes(flat16, 2 << 16), OPS_SCAN * flat16.numel(),
         table_add_library_ms(flat16, 2 << 16))
 
@@ -257,10 +355,39 @@ def phase_kernels(dev, seed: int) -> list:
     print(f"  compact: {int(c)} survivors of {flat27.numel()} at cap {cap}")
     rec("compact", "ntcard_tpu_torch/csrc/compact.cu",
         "ntcard_tpu/ops/scatter_pallas.py:306", err,
-        cuda_ms(lambda: S.compact(flat27, sent, cap)),
-        cuda_ms(lambda: S.compact_plain(flat27, sent, cap)),
-        4 * flat27.numel() + 4 * int(c) + 4, OPS_SCAN * flat27.numel(),
-        cuda_ms(lambda: flat27[(flat27 >= 0) & (flat27 < sent)]))
+        device_ms(lambda: S.compact(flat27, sent, cap)),
+        device_ms(lambda: S.compact_plain(flat27, sent, cap)),
+        4 * flat27.numel() + 4 * cap + 4, OPS_SCAN * flat27.numel(),
+        device_ms(lambda: flat27[(flat27 >= 0) & (flat27 < sent)]))
+    compact_edges(dev, sent, cap)
+    # K2 over K3's cap buffer, gated by "the count fits": the r > 16 path's
+    # table update (models/sketch._compact_add)
+    fits = (c <= cap).to(torch.int32).reshape(1)
+    table = torch.zeros(sent + 1, dtype=torch.int32, device=dev)
+    err = expect_equal("table_add over the cap buffer",
+                       S.table_add_(table.clone(), v, sent, gate=fits),
+                       S.table_add_plain(table.clone(), v, sent, gate=fits))
+    vlong, vones = v.long(), torch.ones_like(v)
+    rec("table_add_buffer", "ntcard_tpu_torch/csrc/hist_add.cu",
+        "ntcard_tpu/ops/scatter_pallas.py:125", err,
+        device_ms(lambda: S.table_add_(table, v, sent, gate=fits)),
+        device_ms(lambda: S.table_add_plain(table, v, sent, gate=fits)),
+        table_bytes(v, sent) + 4, OPS_SCAN * v.numel(),
+        # JAX's own drop-mode scatter of the buffer: the -1 slots wrap to the
+        # dump entry, as index_put_ wraps a negative index
+        device_ms(lambda: table.index_put_((vlong,), vones, accumulate=True), iters=3, warmup=1))
+    # the same kernel gated by the overflow flag, unset: the stream add that
+    # the main path launches after every K3 and that returns at once
+    unset = torch.zeros(1, dtype=torch.int32, device=dev)
+    err = expect_equal("table_add gated, flag unset",
+                       S.table_add_(table.clone(), flat27, sent, gate=unset),
+                       S.table_add_plain(table.clone(), flat27, sent, gate=unset))
+    rec("table_add_gated_unset", "ntcard_tpu_torch/csrc/hist_add.cu",
+        "ntcard_tpu/ops/scatter_pallas.py:125", err,
+        device_ms(lambda: S.table_add_(table, flat27, sent, gate=unset)),
+        device_ms(lambda: S.table_add_plain(table, flat27, sent, gate=unset)),
+        4, 1)  # the flag read and its test
+    del table, vlong, vones
     # forced overflow: counts agree past the cap, and the sketch's gated
     # full-stream add makes the table exact
     over_codes = torch.from_numpy(sampled_repeat_batch(64, stride)).to(dev)
@@ -286,8 +413,8 @@ def phase_kernels(dev, seed: int) -> list:
     )
     rec("table_add_gated", "ntcard_tpu_torch/csrc/hist_add.cu",
         "ntcard_tpu/ops/scatter_pallas.py:125", err,
-        cuda_ms(lambda: S.table_add_(table, oidx, sent, gate=flag)),
-        cuda_ms(lambda: S.table_add_plain(table, oidx, sent, gate=flag)),
+        device_ms(lambda: S.table_add_(table, oidx, sent, gate=flag)),
+        device_ms(lambda: S.table_add_plain(table, oidx, sent, gate=flag)),
         table_bytes(oidx, sent) + 4, OPS_SCAN * oidx.numel(),
         table_add_library_ms(oidx, sent))
     del table
@@ -300,7 +427,7 @@ def phase_kernels(dev, seed: int) -> list:
     small = torch.randint(1, 64, rows.shape, generator=gen, device=dev, dtype=torch.int32)
     rows = torch.where(hit, torch.where(vals < (1 << 17), small, vals), rows)
     del hit, vals, small
-    lib_ms = cuda_ms(lambda: [torch.bincount(r & 0xFFFF, minlength=65536) for r in rows],
+    lib_ms = device_ms(lambda: [torch.bincount(r & 0xFFFF, minlength=65536) for r in rows],
                      iters=3, warmup=1)
     for nbins in K4_NBINS:
         err = expect_equal(
@@ -308,8 +435,8 @@ def phase_kernels(dev, seed: int) -> list:
             S.counter_hist(rows, nbins),
             S.counter_hist_plain(rows, nbins),
         )
-        ms = cuda_ms(lambda: S.counter_hist(rows, nbins))
-        plain_ms = cuda_ms(lambda: S.counter_hist_plain(rows, nbins), iters=3, warmup=1)
+        ms = device_ms(lambda: S.counter_hist(rows, nbins))
+        plain_ms = device_ms(lambda: S.counter_hist_plain(rows, nbins), iters=3, warmup=1)
         nbytes = 4 * rows.numel() + 4 * rows.shape[0] * nbins
         bound = bound_ms(nbytes, OPS_SCAN * rows.numel())[0]
         print(f"  counter_hist nbins={nbins}: bit-exact; kernel {ms:.4f} ms "
@@ -320,7 +447,17 @@ def phase_kernels(dev, seed: int) -> list:
                 nbytes, OPS_SCAN * rows.numel(), lib_ms)
     del rows
 
-    # K5 at k = 64 on the same batch: from zeros, then from a nonzero base
+    # K5 on the same batch at k 64 (nthll's default), 25 and 33 (not
+    # multiples of the 32-base sub-block), b16 and b10: from zeros, from a
+    # nonzero base, from a base whose floor is high but that some windows
+    # still beat, and repeated on one array
+    for k in (25, 33):
+        hs = aligned_stride(L, k)
+        for n_bits in (16, 10):
+            zeros = torch.zeros(1 << n_bits, dtype=torch.int32, device=dev)
+            expect_equal(f"hll_update k{k} b{n_bits}",
+                         hll_update_(zeros.clone(), codes, k, hs, n_bits),
+                         hll_update_plain(zeros.clone(), codes, k, hs, n_bits))
     hstride = aligned_stride(L, 64)
     for n_bits in (16, 10):
         zeros = torch.zeros(1 << n_bits, dtype=torch.int32, device=dev)
@@ -331,12 +468,22 @@ def phase_kernels(dev, seed: int) -> list:
         expect_equal(f"hll_update b{n_bits} from a nonzero base",
                      hll_update_(base.clone(), codes, 64, hstride, n_bits),
                      hll_update_plain(base.clone(), codes, 64, hstride, n_bits))
-        # repeated launches on one register array: after the first, reads
+        high = torch.randint(9, 12, zeros.shape, generator=gen, device=dev, dtype=torch.int32)
+        got = hll_update_(high.clone(), codes, 64, hstride, n_bits)
+        expect_equal(f"hll_update b{n_bits} from a floor of 9", got,
+                     hll_update_plain(high.clone(), codes, 64, hstride, n_bits))
+        if torch.equal(got, high):
+            raise AssertionError(f"hll_update b{n_bits}: no window beat a register above 9")
+        # from zeros (the first batch of a run), then repeated launches on
+        # one register array: after the first, the floor and the reads
         # settle nearly every window, as on a long input
-        ms = cuda_ms(lambda: hll_update_(zeros, codes, 64, hstride, n_bits))
-        plain_ms = cuda_ms(lambda: hll_update_plain(zeros, codes, 64, hstride, n_bits),
+        first_ms = (device_ms(lambda: hll_update_(zeros.zero_(), codes, 64, hstride, n_bits))
+                    - device_ms(lambda: zeros.zero_()))
+        ms = device_ms(lambda: hll_update_(zeros, codes, 64, hstride, n_bits))
+        plain_ms = device_ms(lambda: hll_update_plain(zeros, codes, 64, hstride, n_bits),
                            iters=3, warmup=1)
-        print(f"  hll_update k64 b{n_bits}: bit-exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        print(f"  hll_update k64 b{n_bits}: bit-exact; kernel {ms:.4f} ms repeated "
+              f"(from zeros {first_ms:.4f} ms), plain {plain_ms:.4f} ms")
         if n_bits == 16:  # nthll's default register width
             rec("hll_update", "ntcard_tpu_torch/csrc/hll_update.cu",
                 "ntcard_tpu/models/hll.py:27", err, ms, plain_ms,
@@ -474,13 +621,21 @@ PATH_KERNELS = {
     "gap": ("sketch_idx", "compact", "table_add", "counter_hist"),
     "nthll": ("hll_update",),
 }
-# the runs whose launches each kernel record counts: K1 unmasked and
-# masked, K2 ungated (r16) and gated (r > 16)
+# each kernel record's launches: (wrapper, the runs that count, divisor).
+# K1 unmasked and masked; K2 ungated (r16) and, on the r > 16 runs, two
+# launches after every K3 (models/sketch._compact_add; phase_full checks
+# the count): one over the cap buffer and one gated over the stream, whose
+# flag the set-flag and unset-flag records share
 RECORD_RUNS = {
-    "sketch_idx": ("r27", "r16"), "sketch_idx_masked": ("gap",),
-    "table_add": ("r16",), "table_add_gated": ("r27", "gap"),
-    "compact": ("r27", "gap"), "counter_hist": ("r27", "r16", "gap"),
-    "hll_update": ("nthll",),
+    "sketch_idx": ("sketch_idx", ("r27", "r16"), 1),
+    "sketch_idx_masked": ("sketch_idx", ("gap",), 1),
+    "table_add": ("table_add", ("r16",), 1),
+    "table_add_buffer": ("table_add", ("r27", "gap"), 2),
+    "table_add_gated": ("table_add", ("r27", "gap"), 2),
+    "table_add_gated_unset": ("table_add", ("r27", "gap"), 2),
+    "compact": ("compact", ("r27", "gap"), 1),
+    "counter_hist": ("counter_hist", ("r27", "r16", "gap"), 1),
+    "hll_update": ("hll_update", ("nthll",), 1),
 }
 
 
@@ -573,13 +728,17 @@ def phase_full(fq: Path, tmp: Path, dev) -> dict:
               f"{N_READS / walls[tag]:.0f} reads/s; CLI phases (s) {metrics[tag]['phases_sec']}")
     print(f"  nthll -k{HLL_K}: wall {walls['nthll']:.3f} s, {N_READS / walls['nthll']:.0f} reads/s")
     print(f"  launches in each main-path run: {json.dumps(per_run)}")
-    # table_add runs gated by the overflow flag in the r > 16 runs, where a
-    # launch adds the stream only for a batch that overflowed, and ungated
-    # in the r16 run
+    # in the r > 16 runs every K3 launch is followed by two K2 launches: over
+    # the cap buffer (gated by "the count fits") and over the stream (gated
+    # by the overflow flag, set only for a batch that overflowed); in the
+    # r16 run K2 is ungated
     for tag in ("r27", "gap"):
-        print(f"  table_add ({tag}): {per_run[tag]['table_add']} gated launches, of which "
-              f"{int(metrics[tag]['counters']['overflow_replays'])} found the flag set and "
-              "added the full stream")
+        n_k3 = per_run[tag]["compact"]
+        if per_run[tag]["table_add"] != 2 * n_k3:
+            raise AssertionError(f"{tag}: {per_run[tag]['table_add']} K2 launches for {n_k3} K3")
+        print(f"  table_add ({tag}): {n_k3} over the cap buffer and {n_k3} gated over the "
+              f"stream, of which {int(metrics[tag]['counters']['overflow_replays'])} found the "
+              "flag set and added the full stream")
     print(f"  table_add (r16): {per_run['r16']['table_add']} ungated adds")
     for tag, flags, ks in ntcard_runs:
         host_ntcard(flags, tmp / f"host_{tag}", fq)
@@ -601,19 +760,6 @@ def phase_full(fq: Path, tmp: Path, dev) -> dict:
     return per_run
 
 
-def device_busy_s(prof) -> float:
-    """Device time in a torch.profiler trace: the sum of every device-side
-    event (kernels and copies run one at a time on the one stream)."""
-    import torch
-
-    total_us = 0.0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            t = getattr(e, "self_device_time_total", None)
-            total_us += e.self_cuda_time_total if t is None else t
-    return total_us / 1e6
-
-
 def phase_breakdown(fq: Path, tmp: Path, dev) -> None:
     """Where the full-size runs' time goes. Per run: decode + pack alone (the
     CLI's own batch stream with no device), interleaved with end-to-end
@@ -621,7 +767,6 @@ def phase_breakdown(fq: Path, tmp: Path, dev) -> None:
     the median wall; the device step of one batch, its wire decode, and
     finalize, by CUDA events."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from ntcard_tpu_torch.cli import parse_args, wire_batches
     from ntcard_tpu_torch.io.packing import wire_mode_of
@@ -642,13 +787,14 @@ def phase_breakdown(fq: Path, tmp: Path, dev) -> None:
             t0 = time.monotonic()
             run_cli([*flags, "-p", tmp / f"b_{tag}", fq], dev.type)
             walls.append(time.monotonic() - t0)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+        def profiled_run():
             t0 = time.monotonic()
             run_cli([*flags, "-p", tmp / f"b_{tag}", fq], dev.type)
             torch.cuda.synchronize()
-            prof_wall = time.monotonic() - t0
-        busy = device_busy_s(prof)
+            return time.monotonic() - t0
+
+        prof_wall, busy = profiled(profiled_run, n_batches)  # K1 at least, every batch
 
         batches, stride, use_quad, halo = wire_batches(opt, files, {})
         wire = torch.from_numpy(next(iter(batches))).to(dev)
@@ -723,8 +869,8 @@ def main() -> int:
         print("phase 5: where the time goes in the full-size runs")
         phase_breakdown(fq, tmp, dev)
     for k in kernels:  # each record's launches in the main-path runs that make them
-        wrapper = k["name"].removesuffix("_masked").removesuffix("_gated")
-        k["launches"] = sum(per_run[tag][wrapper] for tag in RECORD_RUNS[k["name"]])
+        wrapper, tags, div = RECORD_RUNS[k["name"]]
+        k["launches"] = sum(per_run[tag][wrapper] for tag in tags) // div
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     loaded = [m for m, mod in sys.modules.items()

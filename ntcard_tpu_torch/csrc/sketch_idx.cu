@@ -12,29 +12,15 @@
 // builds every window hash from rotated prefix XORs because the TPU has no
 // 64-bit lanes and no cheap sequential loop; here each thread rolls the
 // ntHash recurrence (nthash.hpp:242-257) through SEG window starts of one
-// row. The design keeps three costs small beside that roll:
-//
-// * The first window of a segment is not hashed base by base. A block
-//   first hashes every aligned 32-base sub-block of its code tile once, for
-//   all k (one table XOR a base, tables of pre-rotated seeds), and a
-//   thread's first window is the Horner sum of k / 32 sub-block hashes
-//   under P^32, plus a direct remainder of k % 32 bases (none at k = 64, 96,
-//   128): F(XY) = P^|Y| F(X) ^ F(Y), R(XY) = R(X) ^ P^|X| R(Y).
-// * Codes are read once per block: the block loads its [positions, rows]
-//   tile of the position-major stream into shared memory with coalesced
-//   loads and serves every k from it. A roll step looks up one 36-entry
-//   table of F terms and one of R terms, each indexed by the incoming and
-//   outgoing code, in place of four five-way selects.
-// * Stores are row-contiguous: a warp's lanes are 32 rows and its threads
-//   roll in step along the positions, so each warp stages its [32 rows x
-//   32 positions] output in shared memory (16-byte stores, conflict-free
-//   through an odd pitch in 16-byte units) and writes each row's 128-byte
-//   run back with 16-byte stores, four whole lines per warp store.
-//
-// Codes above 4 are not N but hash as N (seed 0), as the plain version's
-// lookup does; shared memory holds min(code, 5) and the tables give code 5
-// code 4's entries. Rolling through an N is exact (N contributes seed 0 on
-// entry and on exit), so validity is a running N count.
+// row, on the shared tile of nthash.cuh: the block reads its [positions,
+// rows] code tile once into shared memory and serves every k from it, its
+// first windows come from sub-block hashes made once for all k, and a roll
+// step is two lookups in 36-entry tables. Beside that, stores are
+// row-contiguous: a warp's lanes are 32 rows and its threads roll in step
+// along the positions, so each warp stages its [32 rows x 32 positions]
+// output in shared memory (16-byte stores, conflict-free through an odd
+// pitch in 16-byte units) and writes each row's 128-byte run back with
+// 16-byte stores, four whole lines per warp store.
 //
 // Spaced seeds (ntcard -g, a single k): each masked position p's seed
 // contributions are XORed out of the window's output F and R before the
@@ -47,13 +33,10 @@
 
 #include "nthash.cuh"
 
-#define ROWS 32                // rows of a block: one per lane
 #define WARPS 8
 #define THREADS (ROWS * WARPS)
 #define SEG 32                 // window starts of a thread (one warp: one segment)
 #define TP (WARPS * SEG)       // window starts of a block tile
-#define SUB 32                 // bases of a sub-block hash
-#define NC 6                   // table entries by code: ACGT, N, any other code
 #define PITCH (SEG + 4)        // stage row pitch in int32: 16-byte units odd
 
 static_assert(SEG % SUB == 0 && SEG % 4 == 0, "segments start on sub-block boundaries");
@@ -109,49 +92,19 @@ __global__ void __launch_bounds__(THREADS, 3) sketch_idx_kernel(
     const int row0 = blockIdx.y * ROWS, p_tile = blockIdx.x * TP;
 
     // tables by code: code 5 (any code above N) takes N's entry
-    for (int i = threadIdx.x; i < SUB * NC; i += THREADS) {
-        const int j = i / NC, c = min(i % NC, 4);
-        tf[i] = srol_n((u64)seeds[c], SUB - 1 - j);
-        tr[i] = srol_n((u64)seeds[5 + c], j);
-    }
-    for (int i = threadIdx.x; i < nk * NC * NC; i += THREADS) {
-        const int k = ks[i / (NC * NC)];
-        const int ci = min(i / NC % NC, 4), co = min(i % NC, 4);
-        f36[i] = (u64)seeds[ci] ^ srol_n((u64)seeds[co], k);
-        r36[i] = srol_n((u64)seeds[5 + ci], k) ^ (u64)seeds[5 + co];
-    }
+    fill_sub_tables(tf, tr, seeds, threadIdx.x, THREADS);
+    for (int i = threadIdx.x; i < nk * NC * NC; i += THREADS)
+        roll_entry(i % (NC * NC), ks[i / (NC * NC)], seeds, f36[i], r36[i]);
     for (int i = threadIdx.x; i < n_mask * NC; i += THREADS) {
         const int src = i / NC * 5 + min(i % NC, 4);
         smf[i] = (u64)mf[src];
         smr[i] = (u64)mr[src];
     }
     for (int i = threadIdx.x; i < n_mask; i += THREADS) smpos[i] = mpos[i];
-    // the code tile, N outside [B, L); lanes along whichever axis is
-    // contiguous in memory, so the loads coalesce
-    for (int i = threadIdx.x; i < W * ROWS; i += THREADS) {
-        int q, r;
-        if (sl == 1) q = i % W, r = i / W;
-        else q = i / ROWS, r = i % ROWS;
-        const int b = row0 + r, p = p_tile + q;
-        unsigned c = 4;
-        if (b < B && p < L) c = min((unsigned)codes[(long long)b * sb + (long long)p * sl], 5u);
-        cs[q * ROWS + r] = (uint8_t)c;
-    }
+    load_code_tile(cs, codes, sb, sl, B, L, row0, p_tile, W, threadIdx.x, THREADS);
     __syncthreads();
     // every aligned sub-block's F, R and N count, once for all k
-    for (int i = threadIdx.x; i < nsub * ROWS; i += THREADS) {
-        const uint8_t* col = cs + (i / ROWS) * SUB * ROWS + i % ROWS;
-        u64 f = 0, r = 0;
-        int n = 0;
-#pragma unroll 8
-        for (int j = 0; j < SUB; ++j) {
-            const unsigned c = col[j * ROWS];
-            f ^= tf[j * NC + c];
-            r ^= tr[j * NC + c];
-            n += c == 4;
-        }
-        subf[i] = f, subr[i] = r, subn[i] = (uint8_t)n;
-    }
+    hash_sub_blocks(cs, tf, tr, subf, subr, subn, nsub, threadIdx.x, THREADS);
     __syncthreads();
 
     const unsigned r_buck = 1u << r_bits;
@@ -167,21 +120,9 @@ __global__ void __launch_bounds__(THREADS, 3) sketch_idx_kernel(
         const int k = ks[t];
         if (p0 < pv) {
             // the segment's first window from sub-block hashes
-            const int m = k / SUB, rem = k % SUB, blk0 = q0 / SUB;
-            u64 F = 0, R = 0, Fz = 0;
-            int nn = 0;
-            for (int j = 0; j < rem; ++j) {
-                const unsigned c = col[(q0 + SUB * m + j) * ROWS];
-                Fz ^= tf[(SUB - rem + j) * NC + c];
-                R ^= tr[j * NC + c];
-                nn += c == 4;
-            }
-            for (int i = 0; i < m; ++i) {
-                F = srol_n(F, SUB) ^ subf[(blk0 + i) * ROWS + lane];
-                nn += subn[(blk0 + i) * ROWS + lane];
-            }
-            F = srol_n(F, rem) ^ Fz;
-            for (int i = m - 1; i >= 0; --i) R = srol_n(R, SUB) ^ subr[(blk0 + i) * ROWS + lane];
+            u64 F, R;
+            int nn;
+            first_window(col, lane, q0, k, tf, tr, subf, subr, subn, F, R, nn);
 
             const u64* ft = f36 + t * NC * NC;
             const u64* rt = r36 + t * NC * NC;
@@ -190,13 +131,7 @@ __global__ void __launch_bounds__(THREADS, 3) sketch_idx_kernel(
 #pragma unroll
                 for (int u = 0; u < 4; ++u) {
                     const int j = j0 + u, q = q0 + j;
-                    if (j > 0) {  // roll one base on
-                        const unsigned co = col[(q - 1) * ROWS], ci = col[(q + k - 1) * ROWS];
-                        const int e = ci * NC + co;
-                        F = srol1(F) ^ ft[e];
-                        R = sror1(R ^ rt[e]);
-                        nn += (int)(ci == 4) - (int)(co == 4);
-                    }
+                    if (j > 0) roll(col, q, k, ft, rt, F, R, nn);  // one base on
                     u64 f = F, r = R;
                     for (int i = 0; i < n_mask; ++i) {
                         const unsigned c = col[(q + smpos[i]) * ROWS];

@@ -62,7 +62,10 @@ class _PipeStream(io.RawIOBase):
 
     close() reaps the child; a non-zero exit status raises DecompressError
     (the reference's SIGCHLD handler exits the whole process on any child
-    failure — callers translate this exception into a fatal error)."""
+    failure — callers translate this exception into a fatal error). Once
+    the consumer has read to EOF, close() waits for the child: it may have
+    closed its stdout without having exited yet, and its status must not
+    be lost (the JAX package's copy kills it then)."""
 
     def __init__(self, cmd):
         if shutil.which(cmd[0]) is None:
@@ -71,20 +74,24 @@ class _PipeStream(io.RawIOBase):
             cmd, stdout=subprocess.PIPE, stdin=subprocess.DEVNULL
         )
         self._cmd = cmd
+        self._eof = False
 
     def readable(self):
         return True
 
     def readinto(self, b):
-        return self._proc.stdout.readinto(b)
+        n = self._proc.stdout.readinto(b)
+        if n == 0 and len(b):
+            self._eof = True
+        return n
 
     def close(self):
         if self.closed:
             return
         try:
-            # Drain-free close: if the consumer stopped early, kill the child
-            # rather than deadlock on a full pipe.
-            if self._proc.poll() is None:
+            # Drain-free close: if the consumer stopped before EOF, kill the
+            # child rather than deadlock on a full pipe.
+            if not self._eof and self._proc.poll() is None:
                 self._proc.stdout.close()
                 self._proc.kill()
                 self._proc.wait()

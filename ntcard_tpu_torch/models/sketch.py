@@ -1,17 +1,19 @@
 """The ntCard sampled count-table sketch on one device (port of
 ntcard_tpu/models/sketch.py::CountTableSketch).
 
-State: one int32 table [2 * 2^r + 1] per k on the device (row 2 * 2^r is the
-dump row, never read) and the exact F1 per k as int64 on the device. A batch
-step runs K1 (hash, sample, bucket) and then, per k,
+State: one int32 table [2 * 2^r + 1] per k on the device and the exact F1
+per k as int64 on the device. Entry 2 * 2^r is the JAX layout's dump row:
+no kernel here writes it and finalize never reads it (it reads
+[:2 * 2^r]); .npz save, load and merge only carry it. A batch step runs K1
+(hash, sample, bucket) and then, per k,
 
 * r <= 16: K2 adds every sampled index into the table in place;
 * r > 16: K3 compacts the sampled indices into a cap-sized buffer
-  (``emit_cap``), which a scatter adds into the table unless the batch
-  overflowed the cap; the overflow flag stays on the device, and K2's body,
-  gated by that flag, then adds the whole emit stream instead. The batch
-  contributes exactly once either way, with no host sync per batch (the
-  JAX package replays flagged batches from the host for the same effect).
+  (``emit_cap``); K2, gated by "the count fits the cap", adds the buffer
+  (it skips the -1 slots), and K2 gated by the overflow flag adds the whole
+  emit stream instead. Both flags stay on the device, so the batch
+  contributes exactly once either way with no host sync per batch (the JAX
+  package drops an overflowed buffer and replays the batch from the host).
 
 Tables wrap mod 2^16 only when finalize reads them (K4), as the reference's
 uint16 table does. Not ported, because each works around the TPU runtime:
@@ -101,14 +103,13 @@ class CountTableSketch:
     def _compact_add(self, table: torch.Tensor, flat: torch.Tensor, sent: int) -> None:
         cap = emit_cap(flat.numel())
         vals, cnt = compact(flat, sent, cap)
-        over = cnt > cap
-        # all or nothing: every slot of an overflowed buffer, like every
-        # unused (-1) slot, lands in the never-read dump row ...
-        slots = torch.where(over | (vals < 0), sent, vals).long()
-        table.index_add_(0, slots, torch.ones_like(vals))
-        # ... and the gated K2 launch adds the whole stream instead
-        table_add_(table, flat, sent, gate=over.to(torch.int32).reshape(1))
-        self._overflows += over
+        over = (cnt > cap).to(torch.int32).reshape(1)
+        # all or nothing: K2 adds the buffer (skipping its -1 slots) unless
+        # it overflowed, as JAX's drop-mode scatter of the masked buffer ...
+        table_add_(table, vals, sent, gate=1 - over)
+        # ... and the same kernel gated by the flag adds the whole stream
+        table_add_(table, flat, sent, gate=over)
+        self._overflows += over[0]
 
     def _f1_totals(self):
         return [a + int(b) for a, b in zip(self._f1_loaded, self.f1.tolist())]

@@ -4,7 +4,9 @@ contract is the XLA scatter max of ntcard_tpu/models/hll.py:27-30 over
 ntcard_tpu.ops.nthash.hll_scan.
 
 :func:`hll_update_` is the wrapper: on a CUDA tensor it launches the hand
-kernel (or raises), on a CPU tensor it runs :func:`hll_update_plain`.
+kernel (or raises), on a CPU tensor it runs :func:`hll_update_plain`. A
+call is two launches of the one source: the register minima, then the
+update, which skips every window that cannot beat the least register.
 """
 
 from __future__ import annotations
@@ -57,12 +59,14 @@ def hll_update_(
     _check_args(regs, codes, k, stride, n_bits)
     dev = codes.device
     P, I, LL = _build.P, _build.I, _build.LL
-    fn = _build.fn("hll_update", "ntc_hll_update", [P, LL, LL, I, I, P, I, I, P, P])
+    fn = _build.fn("hll_update", "ntc_hll_update", [P, LL, LL, I, I, I, P, I, I, P, P, P])
+    n_partial = _build.fn("hll_update", "ntc_hll_partials", [I])(n_bits)
+    partial = torch.empty(n_partial, dtype=torch.int32, device=dev)  # the register minima
     with torch.cuda.device(dev):
         rc = fn(
-            codes.data_ptr(), codes.stride(0), codes.stride(1), codes.shape[0], k,
-            device_seeds(dev).data_ptr(), stride, n_bits, regs.data_ptr(),
-            _build.stream_ptr(codes),
+            codes.data_ptr(), codes.stride(0), codes.stride(1), codes.shape[0], codes.shape[1],
+            k, device_seeds(dev).data_ptr(), stride, n_bits, regs.data_ptr(),
+            partial.data_ptr(), _build.stream_ptr(codes),
         )
         hll_update_.launches += 1
     _build.check(rc, "hll_update")

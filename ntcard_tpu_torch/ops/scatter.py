@@ -127,22 +127,32 @@ def compact_plain(idx: torch.Tensor, sent: int, cap: int):
     return vals, torch.tensor(kept.numel(), dtype=torch.int32, device=idx.device)
 
 
+_COMPACT_SCRATCH: dict = {}  # device -> int32 [2] (counter, ticket), 0 between launches
+
+
 def compact(idx: torch.Tensor, sent: int, cap: int):
     """K3: pack the elements of ``idx`` in [0, sent) into int32[cap]
     (unused slots -1; order is free) and return it with the true count as a
     0-d int32 device tensor. When the count exceeds ``cap`` the buffer is
-    invalid and the caller must discard it, as with compact_pallas."""
+    invalid and the caller must discard it, as with compact_pallas. One
+    launch a call: the kernel fills the unused slots itself and keeps its
+    counter in a per-device scratch pair that it leaves at 0 (calls on one
+    device must share a stream, as the port's do)."""
     _check_cap(cap)
     if idx.device.type != "cuda":
         return compact_plain(idx, sent, cap)
     flat = _flat_int32(idx)
-    vals = torch.full((cap,), -1, dtype=torch.int32, device=flat.device)
-    count = torch.zeros(1, dtype=torch.int32, device=flat.device)
-    fn = _build.fn("compact", "ntc_compact", [P, LL, I, P, I, P, P])
+    vals = torch.empty(cap, dtype=torch.int32, device=flat.device)
+    count = torch.empty(1, dtype=torch.int32, device=flat.device)
+    scratch = _COMPACT_SCRATCH.get(flat.device)
+    if scratch is None:
+        scratch = _COMPACT_SCRATCH[flat.device] = torch.zeros(
+            2, dtype=torch.int32, device=flat.device)
+    fn = _build.fn("compact", "ntc_compact", [P, LL, I, P, I, P, P, P])
     with torch.cuda.device(flat.device):
         rc = fn(
             flat.data_ptr(), flat.numel(), sent, vals.data_ptr(), cap, count.data_ptr(),
-            _build.stream_ptr(flat),
+            scratch.data_ptr(), _build.stream_ptr(flat),
         )
         compact.launches += 1
     _build.check(rc, "compact")

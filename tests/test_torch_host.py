@@ -164,6 +164,42 @@ def test_batch_stream_error_contract_matches_jax(tmp_path, capsys, case):
         assert all(np.array_equal(a, b) for a, b in zip(mine[1], theirs[1]))
 
 
+def test_corrupt_gz_exits_1_every_time(tmp_path, capsys):
+    """A truncated .fq.gz makes gunzip fail after it has written what it
+    could; the port's stream must exit 1 every time, never pass it silently
+    (the reference's SIGCHLD fail-fast contract, as in
+    tests/test_decompress.py). The loop gives the race between the reader's
+    EOF and the child's exit the chance to show: a close that found the
+    child still running after EOF used to kill it and lose its status."""
+    import gzip
+
+    fq = b"@r1\nACGTACGTACGTACGT\n+\nIIIIIIIIIIIIIIII\n@r2\nTTTTACGTACGTACGT\n+\nIIIIIIIIIIIIIIII\n"
+    bad = tmp_path / "corrupt.fq.gz"
+    payload = gzip.compress(fq * 500)
+    bad.write_bytes(payload[: len(payload) // 2])
+    for _ in range(60):
+        with pytest.raises(SystemExit) as e:
+            list(pipeline.batches_from_files([str(bad)], 256, 128, 16))
+        assert e.value.code == 1
+        assert "exited with status" in capsys.readouterr().err
+
+
+def test_filter_that_fails_after_closing_its_output_exits_1(tmp_path, monkeypatch, capsys):
+    """The race made certain: the filter writes a whole valid file, closes
+    its stdout (the reader sees EOF) and only then exits 1. Its status must
+    still abort the run."""
+    from ntcard_tpu_torch.io import decompress
+
+    slow = tmp_path / "reads.fq.slowfail"
+    slow.write_bytes((DATA / "reads.fq").read_bytes())
+    entry = (".slowfail", ["sh", "-c", 'cat "$0"; exec 1>&-; sleep 0.2; exit 3'])
+    monkeypatch.setattr(decompress, "_ZCAT_TABLE", [entry, *decompress._ZCAT_TABLE])
+    with pytest.raises(SystemExit) as e:
+        list(pipeline.batches_from_files([str(slow)], 256, 128, 16))
+    assert e.value.code == 1
+    assert "exited with status 3" in capsys.readouterr().err
+
+
 def test_expand_file_args_matches_jax(tmp_path):
     from ntcard_tpu.io.readers import expand_file_args as jax_expand
     from ntcard_tpu_torch.io.readers import expand_file_args

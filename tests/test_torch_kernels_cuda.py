@@ -124,6 +124,38 @@ def test_hll_update(dev, k, n_bits):
         _eq(got, hll_update_plain(base.clone(), view, k, stride, n_bits))
 
 
+@pytest.mark.parametrize("k", [1, 25, 33, 64])
+@pytest.mark.parametrize("n_bits", [1, 10, 16, 20])
+def test_hll_update_from_a_high_floor(dev, k, n_bits):
+    """K5 skips every window whose run0 does not beat the least register;
+    from a base whose least register is high, the windows that do beat
+    theirs must still land, and a repeated launch must change nothing."""
+    B, L = 300, 300
+    stride = ((L - k + 1) // 8) * 8
+    codes = _codes(k * n_bits, B, L).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(k + n_bits)
+    for lo in (0, 3, 7):
+        base = torch.randint(lo, lo + 3, (1 << n_bits,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        want = hll_update_plain(base.clone(), codes, k, stride, n_bits)
+        got = hll_update_(base.clone(), codes, k, stride, n_bits)
+        _eq(got, want)
+        _eq(hll_update_(got, codes, k, stride, n_bits), want)
+
+
+@pytest.mark.parametrize("ks", [(31,), (32,), (33,), (63, 65), (1, 2, 3), (97, 128, 160)])
+def test_sketch_idx_on_the_shared_tile(dev, ks):
+    """K1 after its tile, sub-block hashes, first windows and roll tables
+    moved into nthash.cuh beside K5: k just under, at and past multiples of
+    the 32-base sub-block, at the main path's row length."""
+    B, L = 100, 1024
+    stride = ((L - max(ks) + 1) // 8) * 8
+    codes = _codes(sum(ks), B, L).to(dev)
+    for r_bits in (27, 16):
+        _eq(sketch_idx(codes.T.contiguous().T, ks, stride, 7, r_bits),
+            sketch_idx_plain(codes, ks, stride, 7, r_bits))
+
+
 def test_hll_sketch_on_the_card_equals_cpu(dev):
     rng = np.random.default_rng(6)
     recs = [bytes(rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=300)) for _ in range(200)]
@@ -164,6 +196,51 @@ def test_compact(dev, cap, density):
         _eq(torch.sort(v).values, torch.sort(pv).values)
     else:  # overflow: the cap is filled, never overrun
         assert int((v >= 0).sum()) == cap
+
+
+def _stream(rng, length, n_surv, sent):
+    """S0/S1 sentinels with n_surv distinct survivors at random places."""
+    x = np.full(length, sent, np.int32)
+    x[rng.random(length) < 0.05] = sent + 1
+    x[rng.choice(length, n_surv, replace=False)] = rng.choice(sent, n_surv, replace=False)
+    return x
+
+
+@pytest.mark.parametrize(
+    "case", ["4m + 1", "offset 1", "offset 3, 4m + 2", "three at an offset", "empty", "none",
+             "cap", "cap + 1", "all, cap of them", "all, past cap"]
+)
+def test_compact_edges(dev, case):
+    """K3 at the edges of its contract, each launched twice (its scratch
+    counter must be back at 0): unaligned starts and lengths, no survivor,
+    exactly cap, cap + 1, all survivors. An overflowed buffer holds cap
+    distinct survivors and no -1."""
+    rng = np.random.default_rng(len(case))
+    sent, cap, n = 1 << 20, 1024, 200_003
+    x = torch.from_numpy(_stream(rng, n, 900, sent)).to(dev)
+    every = torch.arange(n, dtype=torch.int32, device=dev)
+    views = {
+        "4m + 1": x[: n - 2],
+        "offset 1": x[1:],
+        "offset 3, 4m + 2": x[3: n - 2],
+        "three at an offset": x[1:4],
+        "empty": x[:0],
+        "none": torch.from_numpy(_stream(rng, n, 0, sent)).to(dev),
+        "cap": torch.from_numpy(_stream(rng, n, cap, sent)).to(dev),
+        "cap + 1": torch.from_numpy(_stream(rng, n, cap + 1, sent)).to(dev),
+        "all, cap of them": every[:cap],
+        "all, past cap": every,
+    }
+    t = views[case]
+    pv, pc = S.compact_plain(t, sent, cap)
+    for _ in range(2):
+        v, c = S.compact(t, sent, cap)
+        assert int(c) == int(pc)
+        if int(c) <= cap:
+            _eq(torch.sort(v).values, torch.sort(pv).values)
+        else:
+            kept = t[(t >= 0) & (t < sent)]
+            assert bool(torch.isin(v, kept).all()) and torch.unique(v).numel() == cap
 
 
 @pytest.mark.parametrize("nbins", [1, 65, 1001, 58112, 65536])
@@ -218,6 +295,32 @@ def test_sketch_on_the_card_equals_cpu(dev, r_bits):
     assert g_over == c_over
     if r_bits > 16:
         assert g_over >= 1
+    for k in ks:
+        assert gpu[k]["f1"] == cpu[k]["f1"]
+        np.testing.assert_array_equal(gpu[k]["table"], cpu[k]["table"])
+        np.testing.assert_array_equal(gpu[k]["hist"], cpu[k]["hist"])
+
+
+@pytest.mark.parametrize("r_bits", [17, 18])
+@pytest.mark.parametrize("overflow", [False, True])
+def test_cap_buffer_sketch_on_the_card_equals_cpu(dev, r_bits, overflow):
+    """r > 16 on the card (K3, K2 over the cap buffer, K2 gated over the
+    stream) equals the CPU sketch at the default sampling, with and without
+    a batch that overflows the cap, on everything finalize reads."""
+    rng = np.random.default_rng(r_bits)
+    recs = [bytes(rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=400)) for _ in range(300)]
+    if overflow:  # one 8-mer repeated: every window of the record is sampled at s_bits 1
+        recs.insert(0, b"ACGTTGCA" * 3000)
+    ks, stride = (8, 12), aligned_stride(128, 12)
+    s_bits = 1 if overflow else 7
+    out = []
+    for d in (dev, torch.device("cpu")):
+        sk = CountTableSketch(ks, s_bits, r_bits, stride, device=d)
+        for b in pack_records(recs, 128, 128, 12):
+            sk.update(torch.from_numpy(b).to(d))
+        out.append((sk.finalize(return_table=True, cov_max=300), sk.replays))
+    (gpu, g_over), (cpu, c_over) = out
+    assert g_over == c_over and (g_over >= 1) == overflow
     for k in ks:
         assert gpu[k]["f1"] == cpu[k]["f1"]
         np.testing.assert_array_equal(gpu[k]["table"], cpu[k]["table"])

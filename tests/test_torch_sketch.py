@@ -106,6 +106,50 @@ def test_overflow_forcing_input_is_exact(monkeypatch):
     _assert_same(sk.finalize(return_table=True, cov_max=200), want, ks=(K8,))
 
 
+def _survivors(batch, ks, stride, r_bits):
+    """K3's true count of each k's emit stream of one code batch."""
+    from ntcard_tpu_torch.models.sketch import emit_cap
+    from ntcard_tpu_torch.ops.scatter import compact_plain
+    from ntcard_tpu_torch.ops.sketch_idx import sketch_idx_plain
+
+    idx = sketch_idx_plain(torch.from_numpy(batch), ks, stride, S_BITS, r_bits)
+    sent = 2 << r_bits
+    return [int(compact_plain(i, sent, emit_cap(i.numel()))[1]) for i in idx]
+
+
+@pytest.mark.parametrize("r_bits", [17, 18])
+def test_cap_buffer_update_with_no_survivors_matches_jax(monkeypatch, r_bits):
+    """r > 16 adds K3's cap buffer through the gated K2. A first batch whose
+    windows all hold an N leaves no survivor (a buffer of -1 slots only);
+    normal batches follow. Everything finalize reads equals JAX's."""
+    empty = list(pack_records([b"N" * 700] * 40, CHUNK, ROWS, max(KS)))
+    assert _survivors(empty[0], KS, STRIDE, r_bits) == [0, 0]
+    batches = empty + list(pack_records(_records(r_bits + 40), CHUNK, ROWS, max(KS)))
+    want = _jax_state(monkeypatch, batches, r_bits)
+    sk = CountTableSketch(KS, S_BITS, r_bits, STRIDE)
+    for b in batches:
+        sk.update(torch.from_numpy(b))
+    assert sk.replays == 0
+    _assert_same(sk.finalize(return_table=True, cov_max=200), want)
+
+
+@pytest.mark.parametrize("r_bits", [17, 18])
+def test_overflow_then_cap_buffer_matches_jax(monkeypatch, r_bits):
+    """An overflowing batch (the gated full-stream add) and then batches that
+    fit the cap (the gated buffer add), against JAX's Pallas compaction with
+    its drop-mode scatter and host replay."""
+    over = list(pack_records(_overflow_records(), OCHUNK, OROWS, K8))
+    assert _survivors(over[0], (K8,), OSTRIDE, r_bits)[0] > 256  # the cap here
+    rest = list(pack_records(_records(r_bits), OCHUNK, OROWS, K8))
+    batches = over + rest
+    want = _jax_state(monkeypatch, batches, r_bits, ks=(K8,), stride=OSTRIDE)
+    sk = CountTableSketch((K8,), S_BITS, r_bits, OSTRIDE)
+    for b in batches:
+        sk.update(torch.from_numpy(b))
+    assert 1 <= sk.replays < len(batches)
+    _assert_same(sk.finalize(return_table=True, cov_max=200), want, ks=(K8,))
+
+
 def test_save_load_both_ways(monkeypatch, tmp_path):
     """The .npz checkpoint is the JAX package's format: a port sketch loads
     in ntcard_tpu and a ntcard_tpu sketch loads in the port."""

@@ -1,7 +1,8 @@
-"""The port stands alone: ntcard_tpu_torch and chip_smoke.py import nothing of
-the JAX package (ntcard_tpu), not even its jax-free modules, and nothing of
-jax. An AST scan of every file, and a run of every module and all three CLIs
-in a process where neither can be imported."""
+"""The port stands alone: ntcard_tpu_torch, chip_smoke.py and
+tools/kernel_ab.py import nothing of the JAX package (ntcard_tpu), not even
+its jax-free modules, and nothing of jax. An AST scan of every file, and a
+run of every module and all three CLIs in a process where neither can be
+imported."""
 
 import ast
 import os
@@ -14,7 +15,8 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 DATA = REPO / "tests" / "data"
 GOLD = REPO / "tests" / "golden"
-FILES = sorted((REPO / "ntcard_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+FILES = sorted((REPO / "ntcard_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "tools" / "kernel_ab.py"]
 FORBIDDEN = ("ntcard_tpu", "jax")
 
 
