@@ -36,7 +36,20 @@ prints no result):
    have been launched in it;
 5. where the time of those runs goes: decode + pack alone against the
    end-to-end wall, device busy time and idle share (torch.profiler), and
-   the device step, wire decode and finalize (CUDA events).
+   the device step, wire decode and finalize (CUDA events);
+6. the scale-out layer on the one card, against phase 4's host-engine
+   outputs: the port CLI with two private sketches on the card
+   (device=["cuda:0", "cuda:0"], --devices 2) at r = 27 -k64,96,128 and
+   nthll -k64, with the merge of two r27 3-k sketches timed alone; two
+   processes joined by torch.distributed (gloo for the host route) on the
+   two halves of the FASTQ, ntcard -k64 -r16 by the flags and nthll -k64 by
+   the environment, where only process 0 writes; the device route of the
+   cross-process finalize (reduce-scatter, K4 on the owned slice,
+   all-reduce) in a one-rank NCCL group on a full-size r27 3-k sketch
+   against its own finalize; and NTCARD_ENGINE=hybrid for ntcard -k64 -r16
+   and nthll -k64. Each run starts with every launch count at 0 (a
+   process's counts come back on its stderr) and must launch its path's
+   kernels.
 
 The last two lines are a {"kernels": [...]} record and the result line
 {"ok": true, "device": {...}}. Imports nothing of JAX and nothing of
@@ -614,29 +627,79 @@ GAP_RUN = ("gap", ["-k64", "-g2", "-c1000"], (64,))
 BREAKDOWN_REPS = 3  # decode-alone / wall pairs per run; the median is read
 HLL_K, HLL_BITS = 64, 16  # the full-size nthll run: nthll's defaults
 
-# the kernels each full-size path must launch
+# the kernels each full-size path must launch (phase 6: md_ two private
+# sketches on the card, mh_ two processes, route the device route of the
+# cross-process finalize, hy_ the hybrid engine)
 PATH_KERNELS = {
     "r27": ("sketch_idx", "compact", "table_add", "counter_hist"),
     "r16": ("sketch_idx", "table_add", "counter_hist"),
     "gap": ("sketch_idx", "compact", "table_add", "counter_hist"),
     "nthll": ("hll_update",),
+    "md_r27": ("sketch_idx", "compact", "table_add", "counter_hist"),
+    "md_nthll": ("hll_update",),
+    "mh_r16": ("sketch_idx", "table_add", "counter_hist"),
+    "mh_nthll": ("hll_update",),
+    "route": ("counter_hist",),
+    "hy_r16": ("sketch_idx", "table_add", "counter_hist"),
+    "hy_nthll": ("hll_update",),
 }
+R27_RUNS = ("r27", "gap", "md_r27")  # the r > 16 runs: two K2 launches a K3
+PHASE6_RUNS = ("md_r27", "md_nthll", "mh_r16", "mh_nthll", "route", "hy_r16", "hy_nthll")
 # each kernel record's launches: (wrapper, the runs that count, divisor).
 # K1 unmasked and masked; K2 ungated (r16) and, on the r > 16 runs, two
 # launches after every K3 (models/sketch._compact_add; phase_full checks
 # the count): one over the cap buffer and one gated over the stream, whose
 # flag the set-flag and unset-flag records share
 RECORD_RUNS = {
-    "sketch_idx": ("sketch_idx", ("r27", "r16"), 1),
+    "sketch_idx": ("sketch_idx", ("r27", "r16", "md_r27", "mh_r16", "hy_r16"), 1),
     "sketch_idx_masked": ("sketch_idx", ("gap",), 1),
-    "table_add": ("table_add", ("r16",), 1),
-    "table_add_buffer": ("table_add", ("r27", "gap"), 2),
-    "table_add_gated": ("table_add", ("r27", "gap"), 2),
-    "table_add_gated_unset": ("table_add", ("r27", "gap"), 2),
-    "compact": ("compact", ("r27", "gap"), 1),
-    "counter_hist": ("counter_hist", ("r27", "r16", "gap"), 1),
-    "hll_update": ("hll_update", ("nthll",), 1),
+    "table_add": ("table_add", ("r16", "mh_r16", "hy_r16"), 1),
+    "table_add_buffer": ("table_add", R27_RUNS, 2),
+    "table_add_gated": ("table_add", R27_RUNS, 2),
+    "table_add_gated_unset": ("table_add", R27_RUNS, 2),
+    "compact": ("compact", R27_RUNS, 1),
+    "counter_hist": ("counter_hist", ("r27", "r16", "gap", "md_r27", "mh_r16", "route", "hy_r16"), 1),
+    "hll_update": ("hll_update", ("nthll", "md_nthll", "mh_nthll", "hy_nthll"), 1),
 }
+
+
+def wrappers() -> dict:
+    """Every kernel wrapper by name; each counts its launches."""
+    from ntcard_tpu_torch.ops import scatter as S
+    from ntcard_tpu_torch.ops.hll import hll_update_
+    from ntcard_tpu_torch.ops.sketch_idx import sketch_idx
+
+    return {"sketch_idx": sketch_idx, "table_add": S.table_add_, "compact": S.compact,
+            "counter_hist": S.counter_hist, "hll_update": hll_update_}
+
+
+class Runs:
+    """The main-path runs: each one's wall and kernel launches, with every
+    count set to 0 just before it and read just after."""
+
+    def __init__(self):
+        self.walls, self.launches = {}, {}
+
+    def drive(self, tag, fn):
+        """fn() in this process; the kernels of its path must have been
+        launched."""
+        import torch
+
+        for w in wrappers().values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        self.walls[tag] = time.monotonic() - t0
+        self.record(tag, {name: w.launches for name, w in wrappers().items()})
+        return out
+
+    def record(self, tag, launches: dict):
+        self.launches[tag] = launches
+        for name in PATH_KERNELS[tag]:
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} was not launched on the {tag} path")
 
 
 def host_batches(fq: Path, kmax: int, n_threads: int, **kw):
@@ -685,79 +748,66 @@ def host_hll_registers(fq: Path) -> np.ndarray:
     return sketch.registers()
 
 
-def phase_full(fq: Path, tmp: Path, dev) -> dict:
-    """The four full-size runs; returns the launches of each kernel in each."""
-    import torch
-
+def phase_full(fq: Path, tmp: Path, dev, runs: Runs):
+    """The four full-size runs, into ``runs``; returns the host engine's
+    nthll registers and F0 line."""
     from ntcard_tpu_torch.cli_hll import device_registers
     from ntcard_tpu_torch.models.estimate import estimate_f0
-    from ntcard_tpu_torch.ops import scatter as S
-    from ntcard_tpu_torch.ops.hll import hll_update_
-    from ntcard_tpu_torch.ops.sketch_idx import sketch_idx
 
-    wrappers = {
-        "sketch_idx": sketch_idx, "table_add": S.table_add_, "compact": S.compact,
-        "counter_hist": S.counter_hist, "hll_update": hll_update_,
-    }
-
-    def drive(tag, fn):
-        """fn() with every count at 0 just before it, read just after; the
-        kernels of the path must have been launched."""
-        for w in wrappers.values():
-            w.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        out = fn()
-        torch.cuda.synchronize()
-        walls[tag] = time.monotonic() - t0
-        per_run[tag] = {name: w.launches for name, w in wrappers.items()}
-        for name in PATH_KERNELS[tag]:
-            if per_run[tag][name] <= 0:
-                raise AssertionError(f"{name} was not launched on the {tag} path")
-        return out
-
-    walls, per_run, metrics = {}, {}, {}
+    metrics = {}
     ntcard_runs = [*RUNS, GAP_RUN]
     for tag, flags, _ in ntcard_runs:
-        err = drive(tag, lambda: run_cli([*flags, "--metrics", "-p", tmp / f"gpu_{tag}", fq],
-                                         dev.type, capture_stderr=True))
+        err = runs.drive(tag, lambda: run_cli([*flags, "--metrics", "-p", tmp / f"gpu_{tag}", fq],
+                                              dev.type, capture_stderr=True))
         metrics[tag] = cli_metrics(err)
-    f0_line = drive("nthll", lambda: run_nthll([f"-k{HLL_K}", fq], dev.type))
+    f0_line = runs.drive("nthll", lambda: run_nthll([f"-k{HLL_K}", fq], dev.type))
+    walls, per_run = runs.walls, runs.launches
     for tag, flags, _ in ntcard_runs:
         print(f"  {tag} {' '.join(flags)}: wall {walls[tag]:.3f} s, "
               f"{N_READS / walls[tag]:.0f} reads/s; CLI phases (s) {metrics[tag]['phases_sec']}")
     print(f"  nthll -k{HLL_K}: wall {walls['nthll']:.3f} s, {N_READS / walls['nthll']:.0f} reads/s")
     print(f"  launches in each main-path run: {json.dumps(per_run)}")
-    # in the r > 16 runs every K3 launch is followed by two K2 launches: over
-    # the cap buffer (gated by "the count fits") and over the stream (gated
-    # by the overflow flag, set only for a batch that overflowed); in the
-    # r16 run K2 is ungated
     for tag in ("r27", "gap"):
-        n_k3 = per_run[tag]["compact"]
-        if per_run[tag]["table_add"] != 2 * n_k3:
-            raise AssertionError(f"{tag}: {per_run[tag]['table_add']} K2 launches for {n_k3} K3")
-        print(f"  table_add ({tag}): {n_k3} over the cap buffer and {n_k3} gated over the "
-              f"stream, of which {int(metrics[tag]['counters']['overflow_replays'])} found the "
-              "flag set and added the full stream")
+        check_k2_per_k3(tag, per_run[tag])
+        print(f"  table_add ({tag}): {per_run[tag]['compact']} over the cap buffer and "
+              f"{per_run[tag]['compact']} gated over the stream, of which "
+              f"{int(metrics[tag]['counters']['overflow_replays'])} found the flag set and added "
+              "the full stream")
     print(f"  table_add (r16): {per_run['r16']['table_add']} ungated adds")
     for tag, flags, ks in ntcard_runs:
         host_ntcard(flags, tmp / f"host_{tag}", fq)
-        for k in ks:
-            gpu = (tmp / f"gpu_{tag}_k{k}.hist").read_bytes()
-            if gpu != (tmp / f"host_{tag}_k{k}.hist").read_bytes():
-                raise AssertionError(f"{tag} k{k}: port .hist differs from the host engine's")
+        same_hist(tmp / f"gpu_{tag}", tmp / f"host_{tag}", ks)
     print("  every .hist byte-equal to the native host engine's")
     want = host_hll_registers(fq)
-    got = device_registers([str(fq)], HLL_K, HLL_BITS, 1, dev)
-    if not np.array_equal(got, want):
-        raise AssertionError(f"nthll registers differ from the host engine's in "
-                             f"{int((got != want).sum())} of {want.size}")
+    check_registers("nthll", device_registers([str(fq)], HLL_K, HLL_BITS, 1, [dev]), want)
     host_line = f"F0, Exp# of distnt kmers(k={HLL_K}): {estimate_f0(want, canon=True)}\n"
     if f0_line != host_line:
         raise AssertionError(f"nthll F0 line {f0_line!r} vs host engine {host_line!r}")
     print(f"  nthll registers equal to the host engine's ({want.size}, max {int(want.max())}); "
           f"{f0_line.strip()}")
-    return per_run
+    return want, host_line
+
+
+def check_k2_per_k3(tag: str, launches: dict) -> None:
+    """In an r > 16 run every K3 launch is followed by two K2 launches: over
+    the cap buffer (gated by "the count fits") and over the stream (gated by
+    the overflow flag, set only for a batch that overflowed)."""
+    if launches["table_add"] != 2 * launches["compact"]:
+        raise AssertionError(f"{tag}: {launches['table_add']} K2 launches for "
+                             f"{launches['compact']} K3")
+
+
+def same_hist(prefix: Path, ref_prefix: Path, ks) -> None:
+    for k in ks:
+        got, want = Path(f"{prefix}_k{k}.hist"), Path(f"{ref_prefix}_k{k}.hist")
+        if got.read_bytes() != want.read_bytes():
+            raise AssertionError(f"{got.name} differs from the host engine's {want.name}")
+
+
+def check_registers(tag: str, got, want) -> None:
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{tag}: registers differ from the host engine's in "
+                             f"{int((got != want).sum())} of {want.size}")
 
 
 def phase_breakdown(fq: Path, tmp: Path, dev) -> None:
@@ -816,6 +866,288 @@ def phase_breakdown(fq: Path, tmp: Path, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# a process of a two-process run: the port CLI ("ntcard" or "nthll") on
+# the card, its launch counts on the last line of its stderr
+CHILD = """
+import json, sys
+from ntcard_tpu_torch import cli, cli_hll
+from ntcard_tpu_torch.ops import scatter as S
+from ntcard_tpu_torch.ops.hll import hll_update_
+from ntcard_tpu_torch.ops.sketch_idx import sketch_idx
+rc = (cli if sys.argv[1] == "ntcard" else cli_hll).main(sys.argv[2:], device="cuda")
+w = {"sketch_idx": sketch_idx, "table_add": S.table_add_, "compact": S.compact,
+     "counter_hist": S.counter_hist, "hll_update": hll_update_}
+print("LAUNCHES " + json.dumps({n: f.launches for n, f in w.items()}), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def env_set(**kv):
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def two_processes(runs: Runs, tag: str, prog: str, argv_of, env_of) -> list:
+    """``prog`` as processes 0 and 1 of one run on the card, each with its
+    own arguments and environment; records the run's wall (both processes,
+    start to exit) and the sum of their launches; returns their (stdout,
+    stderr)."""
+    t0 = time.monotonic()
+    procs = [
+        subprocess.Popen([sys.executable, "-c", CHILD, prog, *argv_of(pid)], cwd=str(REPO),
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                         env={**os.environ, **env_of(pid)})
+        for pid in (0, 1)
+    ]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    runs.walls[tag] = time.monotonic() - t0
+    total = dict.fromkeys(wrappers(), 0)
+    for pid, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{tag}: process {pid} exited {p.returncode}: {err[-3000:]}")
+        line = next(ln for ln in err.splitlines() if ln.startswith("LAUNCHES "))
+        counts = json.loads(line.split(" ", 1)[1])
+        for name in total:
+            total[name] += counts[name]
+    runs.record(tag, total)
+    return outs
+
+
+def split_fastq(fq: Path, tmp: Path) -> list:
+    """The FASTQ cut into two files by reads (write_fastq's records are all
+    one length)."""
+    data = fq.read_bytes()
+    rec = 0
+    for _ in range(4):
+        rec = data.index(b"\n", rec) + 1
+    if len(data) % rec:
+        raise AssertionError("the FASTQ's records are not all one length")
+    cut = len(data) // rec // 2 * rec
+    halves = [tmp / "reads_a.fq", tmp / "reads_b.fq"]
+    halves[0].write_bytes(data[:cut])
+    halves[1].write_bytes(data[cut:])
+    return halves
+
+
+def merge_time(dev, seed: int) -> float:
+    """Seconds the fold of two private r27 3-k sketches on the card takes
+    (three 1.07 GB tables summed in place, one at a time), checked against
+    the sum taken beforehand."""
+    import torch
+
+    from ntcard_tpu_torch.io.packing import aligned_stride
+    from ntcard_tpu_torch.parallel.data_parallel import PerDeviceCountTableSketch
+
+    sk = PerDeviceCountTableSketch(KS, S_BITS, 27, aligned_stride(L, max(KS)), devices=[dev, dev])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for part in sk._sketches:
+        for t in part.tables:
+            t.random_(0, 1 << 12, generator=gen)
+    head, other = sk._sketches
+    want = [a + b for a, b in zip(head.tables, other.tables)]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    merged = sk.merged()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    for i, (got, w) in enumerate(zip(merged.tables, want)):
+        expect_equal(f"merged table {i}", got, w)
+    del sk, merged, head, other, want
+    torch.cuda.empty_cache()
+    return dt
+
+
+def device_route(fq: Path, dev, runs: Runs) -> None:
+    """The device route of the cross-process finalize (reduce-scatter over
+    NCCL, K4 on the owned slice, all-reduce) in a one-rank group on a
+    full-size r27 3-k sketch, against that sketch's own finalize. A group
+    of two ranks needs two cards (NCCL refuses two ranks on one)."""
+    import torch
+    import torch.distributed as dist
+
+    from ntcard_tpu_torch.cli import parse_args, wire_batches
+    from ntcard_tpu_torch.io.packing import wire_mode_of
+    from ntcard_tpu_torch.models.sketch import CountTableSketch
+    from ntcard_tpu_torch.parallel import multihost
+    from ntcard_tpu_torch.pipeline import device_feed
+
+    opt, _ = parse_args([*RUNS[0][1], "-p", "x", str(fq)])
+    opt.s_bits = 7  # the <50 GB rule the port CLI applies
+    batches, stride, use_quad, halo = wire_batches(opt, [str(fq)], {})
+    sk = CountTableSketch(opt.k_list, opt.s_bits, opt.r_bits, stride, device=dev)
+    for _, b in device_feed(batches, [dev]):
+        sk.update(b, packed=wire_mode_of(b, opt.batch_rows, halo) if use_quad else True)
+    want = sk.finalize(cov_max=opt.cov_max)
+    nbins = opt.cov_max + 1
+    dist.init_process_group("cpu:gloo,cuda:nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        hist = runs.drive("route", lambda: multihost._finalize_reduce_scatter(sk, nbins))
+    finally:
+        dist.destroy_process_group()
+    for i, k in enumerate(opt.k_list):
+        got = hist[i].cpu().numpy().astype(np.int64)
+        if not np.array_equal(got, want[k]["hist"]):
+            raise AssertionError(f"device route k{k}: histogram differs from the sketch's finalize")
+    del sk
+    torch.cuda.empty_cache()
+
+
+def phase_scaleout(fq: Path, tmp: Path, dev, runs: Runs, want_regs, host_line: str,
+                   seed: int) -> None:
+    """Phase 6: the scale-out layer on the one card, against phase 4's
+    host-engine outputs (host_<tag>_k*.hist in ``tmp``, the registers and
+    F0 line)."""
+    import torch
+
+    from ntcard_tpu_torch.cli_hll import device_registers
+
+    walls, launches = runs.walls, runs.launches
+    two = ["cuda:0", "cuda:0"]  # two private sketches on the one card
+
+    tag, (_, flags, ks) = "md_r27", RUNS[0]
+    err = runs.drive(tag, lambda: run_cli([*flags, "--devices", "2", "--metrics",
+                                           "-p", tmp / tag, fq], two,
+                                          capture_stderr=True))
+    same_hist(tmp / tag, tmp / "host_r27", ks)
+    check_k2_per_k3(tag, launches[tag])
+    merge_s = merge_time(torch.device("cuda", 0), seed)
+    # each table read twice and written once: 3 x 3 x (2^28 + 1) int32
+    merge_bound_ms = bound_ms(9 * 4 * ((2 << 27) + 1), 0)[0]
+    print(f"  two private sketches on the card, {' '.join(flags)} --devices 2: .hist byte-equal "
+          f"to the host engine's; wall {walls[tag]:.3f} s (one sketch, phase 4: "
+          f"{walls['r27']:.3f} s); CLI phases (s) {cli_metrics(err)['phases_sec']}; merge of two "
+          f"r27 3-k sketches alone {1e3 * merge_s:.3f} ms (bound {merge_bound_ms:.3f} ms)")
+    tag = "md_nthll"
+    if runs.drive(tag, lambda: run_nthll([f"-k{HLL_K}", fq], two)) != host_line:
+        raise AssertionError(f"{tag}: F0 line differs from the host engine's")
+    check_registers(tag, device_registers([str(fq)], HLL_K, HLL_BITS, 1, two), want_regs)
+    print(f"  nthll -k{HLL_K} on two private register sets: registers and F0 line equal to the "
+          f"host engine's; wall {walls[tag]:.3f} s (one, phase 4: {walls['nthll']:.3f} s)")
+
+    halves = [str(h) for h in split_fastq(fq, tmp)]
+    port = free_port()
+    tag, (_, flags, ks) = "mh_r16", RUNS[1]
+    outs = two_processes(runs, tag, "ntcard", lambda pid: [
+        *flags, "-p", str(tmp / f"{tag}_{pid}"), "--coordinator", f"127.0.0.1:{port}",
+        "--num-hosts", "2", "--host-id", str(pid), *halves], lambda pid: {})
+    same_hist(tmp / f"{tag}_0", tmp / "host_r16", ks)
+    if list(tmp.glob(f"{tag}_1*")):
+        raise AssertionError(f"{tag}: process 1 wrote output")
+    runtimes = [ln.split()[-1] for _, err in outs for ln in err.splitlines()
+                if ln.startswith("Runtime(sec):")]
+    print(f"  two processes on the card (gloo, host route), {' '.join(flags)} over the two halves "
+          f"by the flags: process 0's .hist byte-equal to the host engine's, process 1 wrote "
+          f"nothing; wall {walls[tag]:.3f} s, process start included; each process's "
+          f"Runtime(sec), from main() on: {', '.join(runtimes)} (one process, phase 4: "
+          f"{walls['r16']:.3f} s)")
+    port = free_port()
+    tag = "mh_nthll"
+    outs = two_processes(runs, tag, "nthll", lambda pid: [f"-k{HLL_K}", *halves], lambda pid: {
+        "NTCARD_COORDINATOR": f"127.0.0.1:{port}", "NTCARD_NUM_PROCESSES": "2",
+        "NTCARD_PROCESS_ID": str(pid)})
+    if [ln for ln in outs[0][0].splitlines(True) if ln.startswith("F0,")] != [host_line] or \
+            any(ln.startswith("F0,") for ln in outs[1][0].splitlines()):
+        raise AssertionError(f"{tag}: process 0's F0 line differs from the host engine's, or "
+                             f"process 1 printed one")
+    print(f"  nthll -k{HLL_K} as two processes by the environment: process 0's F0 line equal to "
+          f"the host engine's; wall {walls[tag]:.3f} s, process start included")
+    device_route(fq, dev, runs)
+    print(f"  device route of the cross-process finalize in a one-rank NCCL group, r27 3-k: "
+          f"equal to the sketch's own finalize; {1e3 * walls['route']:.3f} ms")
+
+    total = {"r16": launches["r16"]["sketch_idx"], "nthll": launches["nthll"]["hll_update"]}
+    with env_set(NTCARD_ENGINE="hybrid"):
+        tag, (_, flags, ks) = "hy_r16", RUNS[1]
+        err = runs.drive(tag, lambda: run_cli([*flags, "--metrics", "-p", tmp / tag, fq],
+                                              dev.type, capture_stderr=True))
+        engine = cli_metrics(err).get("engine")
+        if engine != "hybrid":
+            raise AssertionError(f"{tag}: the run's engine tag is {engine!r}, not hybrid")
+        same_hist(tmp / tag, tmp / "host_r16", ks)
+        on_card = launches[tag]["sketch_idx"]
+        print(f"  NTCARD_ENGINE=hybrid {' '.join(flags)}: engine {engine}, .hist byte-equal to the "
+              f"host engine's; {on_card} batches on the card, {total['r16'] - on_card} on the "
+              f"host engine; wall {walls[tag]:.3f} s (device only, phase 4: {walls['r16']:.3f} s)")
+        tag = "hy_nthll"
+        if runs.drive(tag, lambda: run_nthll([f"-k{HLL_K}", fq], dev.type)) != host_line:
+            raise AssertionError(f"{tag}: F0 line differs from the host engine's")
+        on_card = launches[tag]["hll_update"]
+        print(f"  NTCARD_ENGINE=hybrid nthll -k{HLL_K}: F0 line equal to the host engine's; "
+              f"{on_card} batches on the card, {total['nthll'] - on_card} on the host engine; wall "
+              f"{walls[tag]:.3f} s (device only, phase 4: {walls['nthll']:.3f} s)")
+    print(f"  launches in each phase 6 run: {json.dumps({t: launches[t] for t in PHASE6_RUNS})}")
+    interleaved_walls(fq, tmp, dev)
+    torch.cuda.empty_cache()
+
+
+def interleaved_walls(fq: Path, tmp: Path, dev) -> None:
+    """The one-device, two-sketch and hybrid walls in turns, REPS each, and
+    decode alone of the two streams they read: the quad2 wire (the device
+    paths) and raw code batches (the hybrid feed)."""
+    from ntcard_tpu_torch.cli import geometry, parse_args
+    from ntcard_tpu_torch.pipeline import parallel_batches_from_files
+
+    def wall(fn):
+        t0 = time.monotonic()
+        fn()
+        return time.monotonic() - t0
+
+    def decode(flags, wire):
+        opt, _ = parse_args([*flags, "-p", "x", str(fq)])
+        chunk_len, _ = geometry(opt)
+        return wall(lambda: sum(1 for _ in parallel_batches_from_files(
+            [str(fq)], chunk_len, opt.batch_rows, max(opt.k_list), 1, wire_packed=wire)))
+
+    r27, r16 = RUNS[0][1], RUNS[1][1]
+    cases = {
+        "r27 one sketch": lambda: run_cli([*r27, "-p", tmp / "w", fq], dev.type),
+        "r27 two sketches": lambda: run_cli([*r27, "--devices", "2", "-p", tmp / "w", fq],
+                                            ["cuda:0", "cuda:0"]),
+        "r16 device only": lambda: run_cli([*r16, "-p", tmp / "w", fq], dev.type),
+        "r16 hybrid": lambda: run_with_env(lambda: run_cli([*r16, "-p", tmp / "w", fq], dev.type),
+                                           NTCARD_ENGINE="hybrid"),
+        "r16 decode alone, quad2 wire": lambda: decode(r16, "quad2"),
+        "r16 decode alone, raw batches": lambda: decode(r16, False),
+    }
+    got = {name: [] for name in cases}
+    for _ in range(REPS):
+        for name, fn in cases.items():
+            got[name].append(wall(fn))
+    print("  walls in turns (s): " + "; ".join(
+        f"{name} {', '.join(f'{t:.4f}' for t in ts)} (median {sorted(ts)[REPS // 2]:.4f})"
+        for name, ts in got.items()))
+
+
+def run_with_env(fn, **kv):
+    with env_set(**kv):
+        return fn()
+
+
+REPS = 3
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every generated input")
@@ -865,12 +1197,15 @@ def main() -> int:
         t0 = time.monotonic()
         write_fastq(fq, args.seed)
         print(f"  wrote {fq.stat().st_size} bytes of FASTQ in {time.monotonic() - t0:.1f} s")
-        per_run = phase_full(fq, tmp, dev)
+        runs = Runs()
+        want_regs, host_line = phase_full(fq, tmp, dev, runs)
         print("phase 5: where the time goes in the full-size runs")
         phase_breakdown(fq, tmp, dev)
+        print("phase 6: the scale-out layer on one card")
+        phase_scaleout(fq, tmp, dev, runs, want_regs, host_line, args.seed)
     for k in kernels:  # each record's launches in the main-path runs that make them
         wrapper, tags, div = RECORD_RUNS[k["name"]]
-        k["launches"] = sum(per_run[tag][wrapper] for tag in tags) // div
+        k["launches"] = sum(runs.launches[tag][wrapper] for tag in tags) // div
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     loaded = [m for m, mod in sys.modules.items()

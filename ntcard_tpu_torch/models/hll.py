@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ntcard_tpu_torch.device import resolve_device
 from ntcard_tpu_torch.ops.hll import hll_update_
 from ntcard_tpu_torch.ops.nthash import codes_T
 
@@ -19,9 +20,10 @@ from ntcard_tpu_torch.ops.nthash import codes_T
 class HllSketch:
     """Streaming nthll sketch: :meth:`update` with wire or code batches,
     :meth:`registers` for the uint8 registers that
-    models.estimate.estimate_f0 reads."""
+    models.estimate.estimate_f0 reads. ``device=None`` means CUDA and raises
+    without it (device.resolve_device)."""
 
-    def __init__(self, k: int, n_bits: int, stride: int, device="cpu"):
+    def __init__(self, k: int, n_bits: int, stride: int, device=None):
         if stride % 8 or stride < 8:
             raise ValueError(
                 f"stride ({stride}) must be a positive multiple of 8 — use "
@@ -32,7 +34,7 @@ class HllSketch:
         self.n_bits = n_bits
         self.n_buck = 1 << n_bits
         self.stride = stride
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.regs = torch.zeros(self.n_buck, dtype=torch.int32, device=self.device)
 
     def update(self, codes: torch.Tensor, packed=False) -> None:

@@ -5,9 +5,9 @@ It runs the same hash -> sample -> count semantics as the device kernels, in
 the native C++ layer (packer.cpp ntcard_host_update /
 ntcard_host_hll_update), over the SAME [batch_rows, chunk_len] packed
 batches (identical separator / halo / stride window ownership), threading
-within each batch over rows. No CLI path of the port calls it: it is the
-independent full-size reference that chip_smoke.py holds the device path
-against.
+within each batch over rows. The CLIs run it only beside the device, under
+NTCARD_ENGINE=hybrid (pipeline.hybrid_feed); it is also the independent
+full-size reference that chip_smoke.py holds the device path against.
 """
 
 from __future__ import annotations

@@ -28,6 +28,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from ntcard_tpu_torch.device import resolve_device
 from ntcard_tpu_torch.ops.scatter import compact, counter_hist, hist_add, table_add_
 from ntcard_tpu_torch.ops.nthash import codes_T
 from ntcard_tpu_torch.ops.sketch_idx import sketch_idx
@@ -46,7 +47,9 @@ class CountTableSketch:
     """Streaming ntcard sketch on one device: :meth:`update` with wire or
     code batches, :meth:`finalize` for the counter-value histograms and the
     exact F1 counts. ``gap_positions`` (spaced seeds, a single k) are the
-    masked positions of the seed, as cli.gap_positions makes them."""
+    masked positions of the seed, as cli.gap_positions makes them.
+    ``device=None`` means CUDA and raises without it (device.resolve_device);
+    the CPU runs the plain versions of the kernels and must be asked for."""
 
     def __init__(
         self,
@@ -55,7 +58,7 @@ class CountTableSketch:
         r_bits: int,
         stride: int,
         gap_positions: Sequence[int] | None = None,
-        device="cpu",
+        device=None,
     ):
         if stride % 8 or stride < 8:
             raise ValueError(
@@ -68,7 +71,7 @@ class CountTableSketch:
         self.stride = stride
         self.gap_positions = tuple(gap_positions) if gap_positions else None
         self.r_buck = 1 << r_bits
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         nk = len(self.ks)
         self.tables = [
             torch.zeros(2 * self.r_buck + 1, dtype=torch.int32, device=self.device)
@@ -145,7 +148,7 @@ class CountTableSketch:
         )
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "CountTableSketch":
+    def load(cls, path: str, device=None) -> "CountTableSketch":
         z = np.load(path)
         gap = tuple(int(x) for x in z["gap"]) or None
         self = cls(
@@ -163,13 +166,31 @@ class CountTableSketch:
         self._f1_loaded = [int(v) for v in z["f1s"]]
         return self
 
-    def merge_(self, other: "CountTableSketch") -> None:
-        """Fold another sketch's counts into this one (sum merge); the hash
-        configuration must match."""
+    def _check_config(self, other) -> None:
         mine = (self.ks, self.s_bits, self.r_bits, self.stride, self.gap_positions)
         theirs = (other.ks, other.s_bits, other.r_bits, other.stride, other.gap_positions)
         if mine != theirs:
             raise ValueError(f"sketch configs differ; cannot merge ({mine} vs {theirs})")
+
+    def merge_(self, other: "CountTableSketch") -> None:
+        """Fold another sketch's counts into this one (sum merge); the hash
+        configuration must match. The other sketch may live on another
+        device: its tables cross one at a time, so at most one table's copy
+        is in flight (none on the same device)."""
+        self._check_config(other)
         for t, o in zip(self.tables, other.tables):
             t += o.to(t.device)
         self._f1_loaded = [a + b for a, b in zip(self._f1_loaded, other._f1_totals())]
+        self._overflows += other._overflows.to(self.device)
+
+    def merge_host_(self, host) -> None:
+        """Fold a models.host_engine.HostCountTableSketch's counts into this
+        sketch (the hybrid engine's merge, ntcard_tpu's
+        CountTableSketch.merge_host_): its uint16 tables add into the int32
+        tables and its F1s into the F1 totals. uint16-wrapped counts summed
+        mod 2^16 equal the unwrapped counts mod 2^16, so finalize's wrap
+        gives the single-engine histogram exactly."""
+        self._check_config(host)
+        for t, h in zip(self.tables, host.tables):
+            t[: 2 * self.r_buck] += torch.from_numpy(h.astype(np.int32)).to(t.device)
+        self._f1_loaded = [a + int(b) for a, b in zip(self._f1_loaded, host.f1s)]

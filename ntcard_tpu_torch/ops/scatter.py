@@ -127,7 +127,12 @@ def compact_plain(idx: torch.Tensor, sent: int, cap: int):
     return vals, torch.tensor(kept.numel(), dtype=torch.int32, device=idx.device)
 
 
-_COMPACT_SCRATCH: dict = {}  # device -> int32 [2] (counter, ticket), 0 between launches
+# device -> int32 [2] (counter, ticket), 0 between launches. One pair a
+# device is enough because every launch on a device goes to that device's
+# current stream: several private sketches on one card (parallel/
+# data_parallel.py with a repeated device) share that stream rather than
+# get one each, so their K3 launches never overlap on the pair.
+_COMPACT_SCRATCH: dict = {}
 
 
 def compact(idx: torch.Tensor, sent: int, cap: int):

@@ -1,6 +1,6 @@
 """Host-side streaming pipeline: files -> records -> packed wire batches ->
-device (the port's copy of the single-device parts of ntcard_tpu/pipeline.py,
-with its own host-to-device stage).
+devices (the port's copy of ntcard_tpu/pipeline.py's streams and hybrid
+feed, with its own host-to-device stage).
 
 Every file's records feed one packed stream (order is irrelevant: the sketch
 is a commutative fold), cut into dense [B, L] batches. Record boundaries are
@@ -10,18 +10,21 @@ background threads, one packer per thread over a deterministic file
 partition.
 
 :func:`device_feed` replaces the jax.device_put stage of
-ntcard_tpu/pipeline.py:466-531: each wire batch is copied into a pinned host
-buffer and sent to the card with a non-blocking copy on the current stream,
-so the copy of batch i+1 overlaps the kernels of batch i. A ring of pinned
-buffers is reused; before a buffer is refilled, the host waits for the event
-recorded after its last copy.
+ntcard_tpu/pipeline.py:466-531: the batches go to the devices in turn; each
+is copied into a pinned host buffer of its device's ring and sent to that
+card with a non-blocking copy on the card's current stream, so the copy of
+batch i+1 overlaps the kernels of batch i. Each ring is reused; before a
+buffer is refilled, the host waits for the event recorded after its last
+copy. :func:`hybrid_feed` shares one batch stream between the native host
+engine and the device (NTCARD_ENGINE=hybrid).
 """
 
 from __future__ import annotations
 
 import sys
 import threading
-from typing import Iterable, Iterator, List, Optional, Sequence
+import time
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -156,6 +159,7 @@ def parallel_batches_from_files(
     sizes = [input_size(p) for p in paths]
     parts = [host_file_assignment(paths, sizes, n_threads, t) for t in range(n_threads)]
     q: "queue.Queue" = queue.Queue(maxsize=2 * n_threads)
+    stop = threading.Event()
     done = object()
     errs: list = []
 
@@ -167,7 +171,8 @@ def parallel_batches_from_files(
                 lenient=lenient, on_error=on_error, stats_out=stats,
                 wire_packed=wire_packed,
             ):
-                q.put(b)
+                if not _put(q, b, stop):
+                    break
         except BaseException as e:
             errs.append(e)
         finally:
@@ -175,69 +180,243 @@ def parallel_batches_from_files(
                 with _STATS_LOCK:
                     for key, v in stats.items():
                         stats_out[key] = stats_out.get(key, 0) + v
-            q.put(done)
+            _put(q, done, stop)
 
     threads = [threading.Thread(target=worker, args=(p,), daemon=True) for p in parts if p]
     for t in threads:
         t.start()
-    remaining = len(threads)
-    while remaining:
-        item = q.get()
-        if item is done:
-            remaining -= 1
-            continue
-        yield item
+    try:
+        remaining = len(threads)
+        while remaining:
+            item = q.get()
+            if item is done:
+                remaining -= 1
+                continue
+            yield item
+    finally:
+        # closed early: the decode threads stop at their next batch
+        stop.set()
+        for t in threads:
+            t.join()
     if errs:
         raise errs[0]
 
 
+def _put(q, item, stop: threading.Event) -> bool:
+    """Put ``item`` on the bounded queue ``q`` unless ``stop`` is set first;
+    whether it was put."""
+    import queue
+
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=0.05)
+            return True
+        except queue.Full:
+            pass
+    return False
+
+
 def prefetch(iterator: Iterable, depth: int = 3) -> Iterator:
     """Run ``iterator`` in a background thread with a bounded queue, so host
-    decode and pack run ahead while the device consumes batches."""
+    decode and pack run ahead while the device consumes batches.
+
+    Closing the returned iterator (its consumer raised, or stopped early)
+    stops the thread at its next item, closes ``iterator`` and joins the
+    thread, as ntcard_tpu/pipeline.py:447-463 does: nothing goes on
+    decoding or counting underneath the failure."""
     import queue
 
     q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
     done = object()
     err: list = []
 
     def worker():
         try:
             for item in iterator:
-                q.put(item)
+                if not _put(q, item, stop):
+                    break
         except BaseException as e:  # propagate SystemExit etc. to consumer
             err.append(e)
         finally:
-            q.put(done)
+            close = getattr(iterator, "close", None)
+            if close is not None:
+                try:
+                    close()
+                except BaseException as e:
+                    err.append(e)
+            _put(q, done, stop)
 
     t = threading.Thread(target=worker, daemon=True)
     t.start()
-    while True:
-        item = q.get()
-        if item is done:
-            if err:
-                raise err[0]
-            return
-        yield item
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                if err:
+                    raise err[0]
+                return
+            yield item
+    finally:
+        stop.set()
+        t.join()
 
 
-def device_feed(batches: Iterable[np.ndarray], device: torch.device) -> Iterator[torch.Tensor]:
-    """Yield each numpy batch as a tensor on ``device`` (decode runs ahead
-    on a background thread). On the CPU the tensor shares the batch's
-    memory."""
-    if device.type != "cuda":
-        for b in prefetch(batches):
-            yield torch.from_numpy(b)
-        return
-    ring: list = [None] * RING  # (pinned host tensor, event of its last copy)
-    for i, b in enumerate(prefetch(batches)):
-        slot = ring[i % RING]
-        if slot is None or slot[0].shape != b.shape:
-            slot = (torch.empty(b.shape, dtype=torch.uint8, pin_memory=True), torch.cuda.Event())
-            ring[i % RING] = slot
+def _tail_guard_should_stop(
+    total_hint: float | None,
+    pulled: int,
+    host_done: int,
+    elapsed: float,
+    dev_batch_sec: float,
+) -> bool:
+    """Whether the device side of hybrid_feed should stop claiming batches:
+    True when the host engines alone would finish the *estimated* rest of
+    the stream sooner than the device finishes one more (best-case) batch.
+    Once ``pulled`` reaches the hint, the stream has proven the hint short
+    (compressed inputs report their on-disk bytes), so the guard turns
+    itself off rather than starve a possibly fast device."""
+    if total_hint is None or host_done <= 0 or dev_batch_sec <= 0.0:
+        return False
+    remaining = total_hint - pulled
+    if remaining <= 0:
+        return False  # hint exhausted: distrust it
+    host_sec_per_batch = max(elapsed, 1e-9) / host_done  # the host engine's rate
+    return remaining * host_sec_per_batch < dev_batch_sec
+
+
+def hybrid_feed(
+    raw_batches: Iterable[np.ndarray],
+    host_update,
+    total_hint: float | None = None,
+) -> Iterator[np.ndarray]:
+    """Share one batch stream between the host engine and the device
+    (ntcard_tpu/pipeline.py:215-338).
+
+    ``host_update(batch)`` runs on a background worker for every batch the
+    host side claims; the returned iterator yields the rest to the device.
+    Both sides pull from one locked iterator, so the split is pure work
+    stealing with no ratio to tune. The folds commute, so any split equals a
+    single-engine run bit for bit (the sketches merge at the end:
+    CountTableSketch.merge_host_, or a max of registers).
+
+    The iterator joins the worker before it ends and then raises the
+    worker's exception, if any, so a caller may merge the host sketch as
+    soon as its loop ends. A worker's error stops the whole feed at once,
+    and closing the iterator early (the consumer raised) stops and joins
+    the worker and closes ``raw_batches``.
+
+    Tail guard: with ``total_hint`` (the estimated batch count), the device
+    side stops claiming once the host engines alone would finish the
+    estimated rest sooner than the device finishes one more batch, judged
+    from the rates both sides have shown (:func:`_tail_guard_should_stop`),
+    so a slow device never holds the last batch."""
+    lock = threading.Lock()
+    stop = threading.Event()
+    it = iter(raw_batches)
+    errs: list = []
+    t0 = time.perf_counter()
+    host_done = [0]  # batches completed by the host worker (under lock)
+    pulled = [0]  # batches claimed by anyone
+    dev_pulled = [0]
+    dev_last_pull = [0.0]
+    dev_batch_sec = [0.0]  # least observed time between two device pulls
+
+    def pull(for_device: bool = False):
+        if stop.is_set():
+            return None
+        if (
+            for_device
+            and dev_pulled[0] >= 2  # enough samples of both rates
+            and _tail_guard_should_stop(
+                total_hint, pulled[0], host_done[0], time.perf_counter() - t0, dev_batch_sec[0]
+            )
+        ):
+            return None  # the host finishes the tail before one more device batch
+        with lock:
+            b = next(it, None)
+            if b is not None:
+                pulled[0] += 1
+                if for_device:
+                    now = time.perf_counter()
+                    if dev_pulled[0] > 0:
+                        # the least, not the mean: one stalled batch must not
+                        # fire the (irreversible) cutoff
+                        dt = now - dev_last_pull[0]
+                        dev_batch_sec[0] = dt if dev_batch_sec[0] == 0.0 else min(dev_batch_sec[0], dt)
+                    dev_last_pull[0] = now
+                    dev_pulled[0] += 1
+            return b
+
+    def worker():
+        try:
+            while True:
+                b = pull()
+                if b is None:
+                    return
+                host_update(b)
+                with lock:
+                    host_done[0] += 1
+        except BaseException as e:
+            errs.append(e)
+            stop.set()
+
+    host = threading.Thread(target=worker, daemon=True)
+    host.start()
+    try:
+        while not stop.is_set():
+            b = pull(for_device=True)
+            if b is None:
+                break
+            yield b
+        # the device side may stop early (tail guard) with batches left: the
+        # host worker drains them before the iterator ends
+        host.join()
+    finally:
+        stop.set()
+        host.join()
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
+    if errs:
+        raise errs[0]
+
+
+def device_feed(
+    batches: Iterable[np.ndarray], devices: Sequence[torch.device]
+) -> Iterator[Tuple[int, torch.Tensor]]:
+    """Yield (slot, tensor): batch i as a tensor on ``devices[slot]``, slot =
+    i mod len(devices) (decode runs ahead on a background thread). On the CPU
+    the tensor shares the batch's memory. On a card, each slot has its own
+    ring of pinned buffers, and its copy and the event after it are issued
+    on that card's current stream, where the sketch's kernels run. Closing
+    it (the consumer raised) closes ``batches`` through :func:`prefetch`."""
+    n = len(devices)
+    feed = prefetch(batches)
+    try:
+        if all(d.type != "cuda" for d in devices):
+            for i, b in enumerate(feed):
+                yield i % n, torch.from_numpy(b)
         else:
-            slot[1].synchronize()  # its previous copy to the card has finished
-        host, done = slot
+            yield from _to_cards(feed, devices)
+    finally:
+        feed.close()  # closed early: stop and close the stream behind it
+
+
+def _to_cards(feed: Iterator[np.ndarray], devices: Sequence[torch.device]):
+    n = len(devices)
+    rings = [[None] * RING for _ in range(n)]  # (pinned host tensor, event of its last copy)
+    for i, b in enumerate(feed):
+        slot, dev = i % n, devices[i % n]
+        ring, j = rings[slot], (i // n) % RING
+        entry = ring[j]
+        if entry is None or entry[0].shape != b.shape:
+            entry = ring[j] = (torch.empty(b.shape, dtype=torch.uint8, pin_memory=True),
+                               torch.cuda.Event())
+        else:
+            entry[1].synchronize()  # its previous copy to the card has finished
+        host, done = entry
         host.numpy()[...] = b
-        dev = host.to(device, non_blocking=True)
-        done.record()
-        yield dev
+        with torch.cuda.device(dev):
+            out = host.to(dev, non_blocking=True)
+            done.record()
+        yield slot, out

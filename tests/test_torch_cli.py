@@ -1,7 +1,7 @@
 """The port's CLI (ntcard_tpu_torch.cli) and offline merge tool
 (ntcard_tpu_torch.tools.merge_sketches) on the CPU: byte parity with the
 reference goldens, no jax import, the explicit device rule, and the refusal
-of what is not ported yet."""
+of what stays refused."""
 
 import os
 import subprocess
@@ -106,22 +106,45 @@ def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize(
-    "flags,env",
+    "flags,env,message",
     [
-        (["-k12"], {"NTCARD_NUM_PROCESSES": "2"}),
-        (["-k12", "--devices", "2"], {}),
-        (["-k12", "--coordinator", "localhost:1234", "--num-hosts", "2", "--host-id", "0"], {}),
-        (["-k12"], {"NTCARD_COORDINATOR": "localhost:1234"}),
-        (["-k12"], {"NTCARD_ENGINE": "hybrid"}),
+        (["-k12", "--devices", "3"], {}, "--devices 3 asks for more than the 1 local CUDA device"),
+        (["-k12", "--save-sketch", "s.npz", "--coordinator", "localhost:1234", "--num-hosts", "2",
+          "--host-id", "0"], {}, "--save-sketch in a multi-host run is not ported yet"),
+        (["-k12", "--save-sketch", "s.npz"],
+         {"NTCARD_COORDINATOR": "localhost:1234", "NTCARD_NUM_PROCESSES": "2", "NTCARD_PROCESS_ID": "1"},
+         "--save-sketch in a multi-host run is not ported yet"),
     ],
+    ids=["more devices than cards", "save-sketch, multi-host flags", "save-sketch, multi-host env"],
 )
-def test_unported_features_are_refused(monkeypatch, tmp_path, flags, env):
+def test_refused_runs(monkeypatch, tmp_path, flags, env, message):
+    """What stays refused exits 1 before any work: more cards than the
+    machine has (on a one-card machine; the JAX package would drop the work
+    of the missing ones), and --save-sketch in a multi-host run (every
+    process would save its partial sketch to the one path)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(SystemExit, match="not ported yet") as e:
-        cli.main([*flags, "-r16", "-p", str(tmp_path / "o"), str(DATA / "reads.fq")], device="cpu")
-    assert e.value.code != 0
-    assert not (tmp_path / "o_k12.hist").exists()
+    with pytest.raises(SystemExit) as e:
+        cli.main([*flags, "-r16", "-p", str(tmp_path / "o"), str(DATA / "reads.fq")])
+    assert str(e.value.code).startswith(f"ntCard: {message}")
+    assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize(
+    "env", [{"NTCARD_NUM_PROCESSES": "2"}, {"NTCARD_NUM_PROCESSES": "2", "NTCARD_PROCESS_ID": "1"}]
+)
+def test_launch_env_without_a_coordinator_is_one_process(monkeypatch, tmp_path, env):
+    """Without NTCARD_COORDINATOR a run is one process whatever the other
+    two variables say (ntcard_tpu.parallel.multihost.initialize_distributed):
+    it counts every file and writes."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    rc = cli.main(["-k12", "-c1000", "-r16", "-p", str(tmp_path / "o"), str(DATA / "reads.fq"),
+                   str(DATA / "contig.fa")], device="cpu")
+    assert rc == 0
+    assert (tmp_path / "o_k12.hist").read_bytes() == (GOLD / "both_k12.hist.good").read_bytes()
 
 
 def _port_sketch(tmp_path, name, src):

@@ -131,14 +131,14 @@ def test_gap_sketch_matches_jax(monkeypatch, r_bits):
     monkeypatch.delenv("NTCARD_SCATTER", raising=False)
     batches = list(pack_records(_records(r_bits), CHUNK, ROWS, K))
     js = JaxSketch((K,), 7, r_bits, STRIDE, gap_positions=GAP)
-    sk = CountTableSketch((K,), 7, r_bits, STRIDE, gap_positions=GAP)
+    sk = CountTableSketch((K,), 7, r_bits, STRIDE, gap_positions=GAP, device="cpu")
     for b in batches:
         js.update(b)
         w = pack_wire(b, "quad2", STRIDE)
         sk.update(torch.from_numpy(w), packed=wire_mode_of(w, ROWS, CHUNK - STRIDE))
     _assert_same(sk.finalize(return_table=True, cov_max=200), js.finalize(True, 200))
     # and the gap changes the tables: a sketch without it differs
-    plain = CountTableSketch((K,), 7, r_bits, STRIDE)
+    plain = CountTableSketch((K,), 7, r_bits, STRIDE, device="cpu")
     for b in batches:
         plain.update(torch.from_numpy(b))
     assert not np.array_equal(
@@ -161,7 +161,7 @@ def test_k12_gap_golden(tmp_path, src):
 def test_gap_checkpoints_cross_load_and_merge_checks_the_gap(monkeypatch, tmp_path):
     monkeypatch.delenv("NTCARD_SCATTER", raising=False)
     batches = list(pack_records(_records(3), CHUNK, ROWS, K))
-    port = CountTableSketch((K,), 7, 16, STRIDE, gap_positions=GAP)
+    port = CountTableSketch((K,), 7, 16, STRIDE, gap_positions=GAP, device="cpu")
     js = JaxSketch((K,), 7, 16, STRIDE, gap_positions=GAP)
     for b in batches:
         port.update(torch.from_numpy(b))
@@ -173,13 +173,13 @@ def test_gap_checkpoints_cross_load_and_merge_checks_the_gap(monkeypatch, tmp_pa
     from_port = JaxSketch.load(str(tmp_path / "port.npz"))
     assert from_port.gap_positions == GAP
     _assert_same(from_port.finalize(True, 200), want)
-    from_jax = CountTableSketch.load(str(tmp_path / "jax.npz"))
+    from_jax = CountTableSketch.load(str(tmp_path / "jax.npz"), device="cpu")
     assert from_jax.gap_positions == GAP
     _assert_same(from_jax.finalize(True, 200), want)
 
     # a merge across a different gap, or no gap, is refused
     for other in ((4, 5, 6, 7), None):
         with pytest.raises(ValueError, match="configs differ"):
-            from_jax.merge_(CountTableSketch((K,), 7, 16, STRIDE, gap_positions=other))
-    from_jax.merge_(CountTableSketch.load(str(tmp_path / "port.npz")))
+            from_jax.merge_(CountTableSketch((K,), 7, 16, STRIDE, gap_positions=other, device="cpu"))
+    from_jax.merge_(CountTableSketch.load(str(tmp_path / "port.npz"), device="cpu"))
     assert from_jax.finalize()[K]["f1"] == 2 * want[K]["f1"]

@@ -3,8 +3,8 @@
 The HLL emit and scan against the JAX package's, K5's plain version (what
 ntcard_tpu_torch.ops.hll.hll_update_ runs on a CPU tensor) through the
 HllSketch registers against the JAX HllSketch, and the port's nthll CLI:
-the reference goldens, the flag handling of ntcard_tpu.cli_hll, the
-refusal of what is not ported yet, the explicit device rule and no jax.
+the reference goldens, the flag handling of ntcard_tpu.cli_hll, a launch
+environment without a coordinator, the explicit device rule and no jax.
 """
 
 import os
@@ -118,7 +118,7 @@ def test_hll_sketch_matches_jax(k, n_bits):
             r[s : s + int(rng.integers(1, 10))] = ord("N")
         recs.append(r.tobytes())
     batches = list(pack_records(recs, chunk, rows, k))
-    js, sk = JaxHll(k, n_bits, stride), HllSketch(k, n_bits, stride)
+    js, sk = JaxHll(k, n_bits, stride), HllSketch(k, n_bits, stride, device="cpu")
     modes = []
     for b in batches:
         js.update(b)
@@ -131,7 +131,7 @@ def test_hll_sketch_matches_jax(k, n_bits):
     np.testing.assert_array_equal(got, js.registers())
     assert got.max() > 0
     with pytest.raises(ValueError, match="multiple of 8"):
-        HllSketch(k, n_bits, stride + 1)
+        HllSketch(k, n_bits, stride + 1, device="cpu")
 
 
 @pytest.mark.parametrize(
@@ -162,22 +162,14 @@ def test_flags_and_messages_match_jax(capsys, argv):
     assert out[0][0] != 0 or argv[0].startswith("--")
 
 
-@pytest.mark.parametrize(
-    "env",
-    [
-        {"NTCARD_COORDINATOR": "localhost:1234"},
-        {"NTCARD_NUM_PROCESSES": "2"},
-        {"NTCARD_PROCESS_ID": "0"},
-        {"NTCARD_ENGINE": "hybrid"},
-    ],
-)
-def test_unported_features_are_refused(monkeypatch, capsys, env):
+@pytest.mark.parametrize("env", [{"NTCARD_NUM_PROCESSES": "2"}, {"NTCARD_PROCESS_ID": "1"}])
+def test_launch_env_without_a_coordinator_is_one_process(monkeypatch, capsys, env):
+    """Without NTCARD_COORDINATOR nthll is one process whatever the other
+    two variables say: it counts every file and prints."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(SystemExit, match="not ported yet") as e:
-        cli_hll.main(["-k25", str(DATA / "reads.fq")], device="cpu")
-    assert e.value.code != 0
-    assert capsys.readouterr().out == ""
+    assert cli_hll.main(["-k25", str(DATA / "reads.fq")], device="cpu") == 0
+    assert capsys.readouterr().out == (GOLD / "nthll_k25.out.good").read_text()
 
 
 def test_default_device_without_cuda_raises(monkeypatch, capsys):

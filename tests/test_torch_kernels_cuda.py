@@ -325,3 +325,52 @@ def test_cap_buffer_sketch_on_the_card_equals_cpu(dev, r_bits, overflow):
         assert gpu[k]["f1"] == cpu[k]["f1"]
         np.testing.assert_array_equal(gpu[k]["table"], cpu[k]["table"])
         np.testing.assert_array_equal(gpu[k]["hist"], cpu[k]["hist"])
+
+
+@pytest.mark.parametrize("r_bits", [16, 18])
+def test_two_private_sketches_on_one_card_equal_one(dev, r_bits):
+    """Two private sketches on the one card (the batches in turn through
+    device_feed's pinned rings, each on its slot's stream), folded, and a
+    host-engine share merged in (the hybrid merge) equal the CPU sketch of
+    every batch."""
+    from ntcard_tpu_torch.models.host_engine import HostCountTableSketch
+    from ntcard_tpu_torch.parallel.data_parallel import PerDeviceCountTableSketch
+    from ntcard_tpu_torch.pipeline import device_feed
+
+    rng = np.random.default_rng(r_bits + 1)
+    recs = [bytes(rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=400)) for _ in range(300)]
+    ks, stride = (8, 12), aligned_stride(128, 12)
+    batches = list(pack_records(recs, 128, 128, 12))
+    cpu = CountTableSketch(ks, 7, r_bits, stride, device="cpu")
+    for b in batches:
+        cpu.update(torch.from_numpy(b))
+    two = PerDeviceCountTableSketch(ks, 7, r_bits, stride, devices=["cuda:0", "cuda:0"])
+    for slot, b in device_feed(iter(batches[1:]), two.devices):
+        assert b.is_cuda
+        two.update(slot, b)
+    host = HostCountTableSketch(ks, 7, r_bits, stride)
+    host.update(batches[0])
+    head = two.merged()
+    head.merge_host_(host)
+    gpu, want = head.finalize(return_table=True, cov_max=300), cpu.finalize(return_table=True, cov_max=300)
+    for k in ks:
+        assert gpu[k]["f1"] == want[k]["f1"]
+        np.testing.assert_array_equal(gpu[k]["table"], want[k]["table"])
+        np.testing.assert_array_equal(gpu[k]["hist"], want[k]["hist"])
+
+
+def test_two_private_hll_sketches_on_one_card_equal_one(dev):
+    from ntcard_tpu_torch.parallel.data_parallel import PerDeviceHllSketch
+    from ntcard_tpu_torch.pipeline import device_feed
+
+    stride = aligned_stride(128, 25)
+    rng = np.random.default_rng(9)
+    recs = [bytes(rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=400)) for _ in range(300)]
+    batches = list(pack_records(recs, 128, 128, 25))
+    cpu = HllSketch(25, 12, stride, device="cpu")
+    for b in batches:
+        cpu.update(torch.from_numpy(b))
+    two = PerDeviceHllSketch(25, 12, stride, devices=["cuda:0", "cuda:0"])
+    for slot, b in device_feed(iter(batches), two.devices):
+        two.update(slot, b)
+    np.testing.assert_array_equal(two.registers(), cpu.registers())

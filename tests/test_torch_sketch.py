@@ -64,7 +64,7 @@ def test_sketch_matches_jax(monkeypatch, r_bits):
     raw code batches."""
     batches = list(pack_records(_records(r_bits), CHUNK, ROWS, max(KS)))
     want = _jax_state(monkeypatch, batches, r_bits)
-    sk = CountTableSketch(KS, S_BITS, r_bits, STRIDE)
+    sk = CountTableSketch(KS, S_BITS, r_bits, STRIDE, device="cpu")
     modes = []
     for b in batches:
         w = pack_wire(b, "quad2", STRIDE)
@@ -99,7 +99,7 @@ def test_overflow_forcing_input_is_exact(monkeypatch):
     full-stream add must make the tables equal to the plain XLA scatter."""
     batches = list(pack_records(_overflow_records(), OCHUNK, OROWS, K8))
     want = _jax_state(monkeypatch, batches, R18, ks=(K8,), stride=OSTRIDE, scatter=False)
-    sk = CountTableSketch((K8,), S_BITS, R18, OSTRIDE)
+    sk = CountTableSketch((K8,), S_BITS, R18, OSTRIDE, device="cpu")
     for b in batches:
         sk.update(torch.from_numpy(b))
     assert sk.replays >= 1  # the overflow path actually ran
@@ -126,7 +126,7 @@ def test_cap_buffer_update_with_no_survivors_matches_jax(monkeypatch, r_bits):
     assert _survivors(empty[0], KS, STRIDE, r_bits) == [0, 0]
     batches = empty + list(pack_records(_records(r_bits + 40), CHUNK, ROWS, max(KS)))
     want = _jax_state(monkeypatch, batches, r_bits)
-    sk = CountTableSketch(KS, S_BITS, r_bits, STRIDE)
+    sk = CountTableSketch(KS, S_BITS, r_bits, STRIDE, device="cpu")
     for b in batches:
         sk.update(torch.from_numpy(b))
     assert sk.replays == 0
@@ -143,7 +143,7 @@ def test_overflow_then_cap_buffer_matches_jax(monkeypatch, r_bits):
     rest = list(pack_records(_records(r_bits), OCHUNK, OROWS, K8))
     batches = over + rest
     want = _jax_state(monkeypatch, batches, r_bits, ks=(K8,), stride=OSTRIDE)
-    sk = CountTableSketch((K8,), S_BITS, r_bits, OSTRIDE)
+    sk = CountTableSketch((K8,), S_BITS, r_bits, OSTRIDE, device="cpu")
     for b in batches:
         sk.update(torch.from_numpy(b))
     assert 1 <= sk.replays < len(batches)
@@ -154,28 +154,28 @@ def test_save_load_both_ways(monkeypatch, tmp_path):
     """The .npz checkpoint is the JAX package's format: a port sketch loads
     in ntcard_tpu and a ntcard_tpu sketch loads in the port."""
     batches = list(pack_records(_records(3), CHUNK, ROWS, max(KS)))
-    port = CountTableSketch(KS, S_BITS, 16, STRIDE)
+    port = CountTableSketch(KS, S_BITS, 16, STRIDE, device="cpu")
     for b in batches:
         port.update(torch.from_numpy(b))
     port_state = port.finalize(return_table=True, cov_max=200)
 
     port.save(str(tmp_path / "port.npz"))
     _assert_same(JaxSketch.load(str(tmp_path / "port.npz")).finalize(True, 200), port_state)
-    _assert_same(CountTableSketch.load(str(tmp_path / "port.npz")).finalize(True, 200), port_state)
+    _assert_same(CountTableSketch.load(str(tmp_path / "port.npz"), device="cpu").finalize(True, 200), port_state)
 
     monkeypatch.delenv("NTCARD_SCATTER", raising=False)
     js = JaxSketch(KS, S_BITS, 16, STRIDE)
     for b in batches:
         js.update(b)
     js.save(str(tmp_path / "jax.npz"))
-    _assert_same(CountTableSketch.load(str(tmp_path / "jax.npz")).finalize(True, 200), port_state)
+    _assert_same(CountTableSketch.load(str(tmp_path / "jax.npz"), device="cpu").finalize(True, 200), port_state)
 
 
 def test_merge_equals_one_pass():
     recs = _records(5)
-    whole = CountTableSketch(KS, S_BITS, 12, STRIDE)
-    a = CountTableSketch(KS, S_BITS, 12, STRIDE)
-    b = CountTableSketch(KS, S_BITS, 12, STRIDE)
+    whole = CountTableSketch(KS, S_BITS, 12, STRIDE, device="cpu")
+    a = CountTableSketch(KS, S_BITS, 12, STRIDE, device="cpu")
+    b = CountTableSketch(KS, S_BITS, 12, STRIDE, device="cpu")
     for batch in pack_records(recs, CHUNK, ROWS, max(KS)):
         whole.update(torch.from_numpy(batch))
     for part, sk in ((recs[:60], a), (recs[60:], b)):
@@ -184,4 +184,22 @@ def test_merge_equals_one_pass():
     a.merge_(b)
     _assert_same(a.finalize(True, 200), whole.finalize(True, 200))
     with pytest.raises(ValueError):
-        a.merge_(CountTableSketch(KS, S_BITS, 12, STRIDE + 8))
+        a.merge_(CountTableSketch(KS, S_BITS, 12, STRIDE + 8, device="cpu"))
+
+
+@pytest.mark.parametrize("make", ["CountTableSketch", "CountTableSketch.load", "HllSketch"])
+def test_default_device_without_cuda_raises(monkeypatch, tmp_path, make):
+    """The sketches are library entry points: without ``device`` they run on
+    CUDA, and without CUDA they raise rather than carry on on the CPU."""
+    from ntcard_tpu_torch.models.hll import HllSketch
+
+    path = str(tmp_path / "s.npz")
+    CountTableSketch(KS, S_BITS, 12, STRIDE, device="cpu").save(path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    build = {
+        "CountTableSketch": lambda: CountTableSketch(KS, S_BITS, 12, STRIDE),
+        "CountTableSketch.load": lambda: CountTableSketch.load(path),
+        "HllSketch": lambda: HllSketch(25, 10, STRIDE),
+    }[make]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build()
